@@ -1,11 +1,17 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (libjxl_tpu_torch) on one NVIDIA
 card: builds the native host library and the CUDA kernel from the
-sources, holds the kernel against its plain PyTorch version, decodes the
-committed HDR corpus (1080p and three 3840x2160 frames) bitstream -> PQ16
-through ``decode_device``, checks the result against the plain CPU path,
-and times the host parse, the device decode, sustained throughput and
-the kernel.
+sources, holds the kernel against its plain PyTorch version (single
+frames, batches, custom loop-filter weights), decodes the committed HDR
+corpus (1080p and three 3840x2160 frames) bitstream -> PQ16 through
+``decode_device``, checks the result against the plain CPU path, and
+times the host parse, the device decode, sustained throughput and the
+kernel. Then the post-stage path: the committed streams of
+tests/torch_corpus (a 1080p frame upsampled 2x to 3840x2160 with photon
+noise, and a 1080p frame with spline strokes) decoded on the card and
+timed stage by stage; and the batched path: ``DecodePipeline`` at
+``batch=1`` and ``batch=3`` on the 1080p stream, as bench.py's 1080p
+phases run it.
 
     python3 chip_smoke.py
 
@@ -27,8 +33,13 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CORPUS = os.path.join(ROOT, "bench_corpus")
+POST_CORPUS = os.path.join(ROOT, "tests", "torch_corpus")
 FILE_1080P = "1080p_hdr_pq_d1_e5_prog_epf3.jxl"
 FILES_4K = [f"4k_hdr_pq_d1_e5_prog_epf3_{i}.jxl" for i in range(3)]
+FILE_UP2 = "4k_hdr_pq_d2_e5_up2_iso3200_epf3.jxl"
+FILE_SPLINES = "1080p_splines_d1.jxl"
+E2E_FRAMES, BATCH, BATCHED_FRAMES = 8, 3, 9   # as bench.py:317-349
+BATCH_TOL = 1e-4        # a batched frame vs its single decode (XYB)
 BUDGET_S = 900          # hard limit, builds included
 KERNEL_TOL = 2e-6       # kernel vs plain version (reference's own bound)
 XYB_TOL = 1e-4          # card vs CPU decode (port vs JAX tests' bound)
@@ -74,9 +85,11 @@ def epf_operations_per_pixel(epf_iters: int, gab: bool) -> int:
 
 
 def bound_ms(h: int, w: int, bh: int, bw: int, epf_iters: int,
-             gab: bool):
-    nbytes = 2 * 3 * h * w * 4 + bh * bw * 4
-    ops = epf_operations_per_pixel(epf_iters, gab) * h * w
+             gab: bool, n: int = 1):
+    """Least time of the kernel on ``n`` frames of (3, h, w) with one
+    (bh, bw) block map each."""
+    nbytes = n * (2 * 3 * h * w * 4 + bh * bw * 4)
+    ops = n * epf_operations_per_pixel(epf_iters, gab) * h * w
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FP32_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -95,9 +108,32 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def read(name: str) -> bytes:
-    with open(os.path.join(CORPUS, name), "rb") as f:
+def read(name: str, corpus: str = CORPUS) -> bytes:
+    with open(os.path.join(corpus, name), "rb") as f:
         return f.read()
+
+
+def custom_loop_filter():
+    """Custom gaborish weights, EPF channel scales and sigma parameters,
+    written to a bitstream and read back as a decoder sees them."""
+    from libjxl_tpu_torch.bitstream.bit_io import BitReader, BitWriter
+    from libjxl_tpu_torch.bitstream.fields import bundle_read, bundle_write
+    from libjxl_tpu_torch.frame.frame_header import LoopFilter
+    lf = LoopFilter(all_default=False, gab=True, gab_custom=True,
+                    gab_x_weight1=0.09, gab_x_weight2=0.04,
+                    gab_y_weight1=0.13, gab_y_weight2=0.07,
+                    gab_b_weight1=0.1, gab_b_weight2=0.03,
+                    epf_iters=3, epf_weight_custom=True,
+                    epf_channel_scale=[32.0, 6.0, 2.5],
+                    epf_sigma_custom=True, epf_quant_mul=0.55,
+                    epf_pass0_sigma_scale=0.75, epf_pass2_sigma_scale=5.0,
+                    epf_border_sad_mul=0.5)
+    w = BitWriter()
+    bundle_write(lf, w)
+    w.align_to_byte()
+    out = LoopFilter()
+    bundle_read(BitReader(w.get_bytes()), out)
+    return out
 
 
 def main() -> int:
@@ -112,9 +148,10 @@ def main() -> int:
     import numpy as np
 
     import libjxl_tpu_torch
+    from libjxl_tpu_torch import device
     from libjxl_tpu_torch.device import feed_to_torch
     from libjxl_tpu_torch.native import build as native_build
-    from libjxl_tpu_torch.ops import epf_cuda, filters
+    from libjxl_tpu_torch.ops import epf_cuda, filters, stages
     from libjxl_tpu_torch.ops.decode_torch import xyb_to_pq16
     from libjxl_tpu_torch.tpu import pipeline
 
@@ -189,6 +226,50 @@ def main() -> int:
                         f"EPF kernel differs from its plain version by "
                         f"{err} > {KERNEL_TOL} at {(h, w, it, gab)}")
         del img, sig, got, ref
+    # Batches: one launch for N frames, each frame held against the plain
+    # version run alone, with one block map per frame and with one shared.
+    for n, (h, w) in ((3, (1080, 1920)), (2, (61, 117))):
+        img = torch.from_numpy(rng.normal(0, 0.3, (n, 3, h, w))
+                               .astype(np.float32)).to(dev)
+        sig = torch.from_numpy(rng.uniform(
+            -6.0, -0.05, (n, (h + 7) // 8, (w + 7) // 8)).astype(
+                np.float32)).to(dev)
+        for shared in (False, True):
+            maps = sig[0] if shared else sig
+            before = epf_cuda.launches
+            got = epf_cuda.apply_loop_filters(img, maps, epf_iters=3,
+                                              gab=True)
+            if epf_cuda.launches != before + 1:
+                raise AssertionError("a batch took more than one launch")
+            err = max((got[i] - filters.apply_loop_filters(
+                img[i], sig[0] if shared else sig[i], epf_iters=3,
+                gab=True)).abs().max().item() for i in range(n))
+            torch.cuda.synchronize()
+            max_err = max(max_err, err)
+            emit({"phase": "kernel_vs_plain", "shape": [n, 3, h, w],
+                  "shared_block_map": shared, "epf_iters": 3, "gab": True,
+                  "max_abs_err": err})
+            if not err <= KERNEL_TOL:
+                raise AssertionError(
+                    f"batched EPF kernel differs from its plain version "
+                    f"by {err} > {KERNEL_TOL} at {(n, h, w, shared)}")
+        del img, sig, got
+    # Custom loop-filter weights from a frame header.
+    lf_custom = pipeline.loop_filter_params(custom_loop_filter())
+    img = torch.from_numpy(rng.normal(0, 0.3, (3, 257, 389))
+                           .astype(np.float32)).to(dev)
+    sig = torch.from_numpy(rng.uniform(-6.0, -0.05, (33, 49))
+                           .astype(np.float32)).to(dev)
+    err = (epf_cuda.apply_loop_filters(img, sig, **lf_custom)
+           - filters.apply_loop_filters(img, sig, **lf_custom)) \
+        .abs().max().item()
+    max_err = max(max_err, err)
+    emit({"phase": "kernel_vs_plain", "shape": [3, 257, 389],
+          "custom_loop_filter_weights": True, "max_abs_err": err})
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"EPF kernel with custom weights differs "
+                             f"from its plain version by {err}")
+    del img, sig
     torch.cuda.empty_cache()
 
     # ---- 3. main path: bitstream -> PQ16 on the card ----
@@ -309,7 +390,181 @@ def main() -> int:
           "epf_bound_ms_4k": b_ms, "epf_bound_by": b_by,
           "epf_bytes": nbytes, "epf_operations": ops})
 
-    # ---- 5. kernels (the line before the last) ----
+    # ---- 5. post path: upsampling + noise, and splines, on the card ----
+    _phase[0] = "post_path"
+    up2, spl = read(FILE_UP2, POST_CORPUS), read(FILE_SPLINES, POST_CORPUS)
+    post_feed = libjxl_tpu_torch.parse_to_feed(up2)
+    post = post_feed["post"]
+    gd, vfi = post["noise"][3], post["noise"][4]
+    t = time.perf_counter()
+    stages.noise_planes_for(*post["final_hw"], gd, vfi)    # host, cached
+    noise_host_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    epf_cuda.launches = 0
+    post_outs = {FILE_UP2: libjxl_tpu_torch.decode_device(up2, out="pq16"),
+                 FILE_SPLINES: libjxl_tpu_torch.decode_device(spl,
+                                                              out="pq16")}
+    torch.cuda.synchronize()
+    post_launches = epf_cuda.launches
+    post_peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    if post_launches != 2:
+        raise AssertionError(f"EPF kernel launched {post_launches} times "
+                             "for 2 post-path frames")
+    post_checks = []
+    for name, data_, want in ((FILE_UP2, up2, (3, 2160, 3840)),
+                              (FILE_SPLINES, spl, (3, 1080, 1920))):
+        o = post_outs[name]
+        if tuple(o.shape) != want or o.dtype != torch.uint16 \
+                or o.device.type != "cuda":
+            raise AssertionError(f"{name}: {o.dtype} {tuple(o.shape)} "
+                                 f"on {o.device}")
+        xyb_cpu = libjxl_tpu_torch.decode_device(data_, out="xyb",
+                                                 device="cpu")
+        xyb_gpu = libjxl_tpu_torch.decode_device(data_, out="xyb")
+        finite = bool(torch.isfinite(xyb_gpu).all().item())
+        xyb_err = (xyb_gpu.cpu() - xyb_cpu).abs().max().item()
+        # The tail on the card and on the CPU from this same XYB: the
+        # spline scatter-adds land in another order in every card run,
+        # so the PQ16 output above came from slightly different XYB.
+        pq_gpu = xyb_to_pq16(xyb_gpu).to(torch.int32).cpu()
+        tail_err = (pq_gpu - xyb_to_pq16(xyb_gpu.cpu()).to(torch.int32)) \
+            .abs().max().item()
+        run_diff = (o.to(torch.int32).cpu() - pq_gpu).abs().max().item()
+        post_checks.append({"file": name, "shape": list(o.shape),
+                            "finite": finite, "xyb_max_abs_diff": xyb_err,
+                            "pq16_tail_max_code_diff": tail_err,
+                            "pq16_two_card_runs_max_code_diff": run_diff})
+        if not (finite and xyb_err <= XYB_TOL and tail_err <= 1):
+            raise AssertionError(f"{name}: card vs CPU: {post_checks[-1]}")
+        del xyb_cpu, xyb_gpu
+    del post_outs
+
+    def stage_split(feed):
+        """Per-stage device ms of one frame (warm: the noise planes and
+        the constant banks are cached on the card)."""
+        fpost = feed["post"]
+        h, w = feed["image_hw"]
+        st = feed_to_torch(feed, dev)
+        x0 = pipeline.staged_xyb(st, h, w)
+        x1 = pipeline.loop_filters(x0, st)
+        x2 = pipeline.upsample_stage(x1, fpost)
+        x3 = pipeline.splines_stage(x2, fpost)
+        x4 = pipeline.noise_stage(x3, fpost)
+        torch.cuda.synchronize()
+        split = {
+            "staging_ms": cuda_ms(torch, lambda: feed_to_torch(feed, dev),
+                                  3),
+            "xyb_ms": cuda_ms(torch, lambda: pipeline.staged_xyb(st, h, w),
+                              3),
+            "filters_ms": cuda_ms(torch, lambda: pipeline.loop_filters(
+                x0, st), 10)}
+        if "upsample" in fpost:
+            split["upsample_ms"] = cuda_ms(
+                torch, lambda: pipeline.upsample_stage(x1, fpost), 5)
+        if "splines" in fpost:
+            split["splines_ms"] = cuda_ms(
+                torch, lambda: pipeline.splines_stage(x2, fpost), 5)
+        if "noise" in fpost:
+            split["noise_ms"] = cuda_ms(
+                torch, lambda: pipeline.noise_stage(x3, fpost), 5)
+        split["pq16_ms"] = cuda_ms(torch, lambda: xyb_to_pq16(x4), 5)
+        split["device_total_ms"] = cuda_ms(
+            torch, lambda: pipeline.decode_frame_device2(
+                feed, h, w, out="pq16", post=fpost), 3)
+        return split
+
+    t = time.perf_counter()
+    spl_feed = libjxl_tpu_torch.parse_to_feed(spl)
+    spl_parse_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    libjxl_tpu_torch.parse_to_feed(up2)
+    up2_parse_ms = (time.perf_counter() - t) * 1e3
+    emit({"phase": "post_path", "card": smi, "epf_launches": post_launches,
+          "peak_mib": post_peak_mib, "checks": post_checks,
+          "noise_planes_host_s_first_call": noise_host_s,
+          "host_parse_ms": {FILE_UP2: up2_parse_ms,
+                            FILE_SPLINES: spl_parse_ms},
+          "stage_split_ms": {FILE_UP2: stage_split(post_feed),
+                             FILE_SPLINES: stage_split(spl_feed)}})
+    torch.cuda.empty_cache()
+
+    # ---- 6. batched path: DecodePipeline(batch=3) at 1080p ----
+    _phase[0] = "batched"
+    s1080 = data[FILE_1080P]
+    mp = 1920 * 1080 / 1e6
+
+    def run(batch, frames, out="pq16"):
+        pipe = libjxl_tpu_torch.DecodePipeline(out=out, max_inflight=4,
+                                               batch=batch)
+        t = time.perf_counter()
+        futs = [pipe.submit(s1080) for _ in range(frames)]
+        pipe.flush()
+        res = [f.result() for f in futs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        pipe.close()
+        return res, wall
+
+    run(1, 2)                                         # warm-up
+    epf_cuda.launches = 0
+    res, wall1 = run(1, E2E_FRAMES)
+    e2e_launches = epf_cuda.launches
+    run(BATCH, BATCH)                                 # warm-up
+    epf_cuda.launches = 0
+    res, wall3 = run(BATCH, BATCHED_FRAMES)
+    batched_launches = epf_cuda.launches
+    n_batches = -(-BATCHED_FRAMES // BATCH)
+    if e2e_launches != E2E_FRAMES or batched_launches != n_batches:
+        raise AssertionError(
+            f"EPF launches {e2e_launches} for {E2E_FRAMES} single frames "
+            f"and {batched_launches} for {n_batches} batches")
+    if len(res) != BATCHED_FRAMES or any(
+            tuple(o.shape) != (3, 1080, 1920) or o.dtype != torch.uint16
+            for o in res):
+        raise AssertionError("batched run lost or misshaped frames")
+    del res
+    # Each frame of a batch against its single decode, in XYB.
+    single = libjxl_tpu_torch.decode_device(s1080, out="xyb")
+    xres, _ = run(BATCH, BATCH, out="xyb")
+    batch_err = max((o - single).abs().max().item() for o in xres)
+    if not batch_err <= BATCH_TOL:
+        raise AssertionError(f"batched frame differs from its single "
+                             f"decode by {batch_err} (XYB)")
+    # The kernel on the N x 1080p batch, against its plain version and
+    # its bound.
+    bfeed = libjxl_tpu_torch.parse_to_feed(s1080)
+    bt = device.feeds_to_torch([bfeed] * BATCH, dev)
+    bx = pipeline.staged_xyb(bt, 1080, 1920)
+    blf = pipeline.loop_filter_params(bfeed["lf"])
+    bk = epf_cuda.apply_loop_filters(bx, bt["inv_sigma"], **blf)
+    bp = filters.apply_loop_filters(bx, bt["inv_sigma"], **blf)
+    b_err = (bk - bp).abs().max().item()
+    max_err = max(max_err, b_err)
+    if not b_err <= KERNEL_TOL:
+        raise AssertionError(f"batched EPF kernel differs from its plain "
+                             f"version by {b_err} on decoded frames")
+    bk_ms = cuda_ms(torch, lambda: epf_cuda.apply_loop_filters(
+        bx, bt["inv_sigma"], **blf), 20)
+    bp_ms = cuda_ms(torch, lambda: filters.apply_loop_filters(
+        bx, bt["inv_sigma"], **blf), 3)
+    bbh, bbw = bt["inv_sigma"].shape[-2:]
+    bb_ms, bb_by, _, _ = bound_ms(1080, 1920, bbh, bbw, blf["epf_iters"],
+                                  blf["gab"], n=BATCH)
+    del bt, bx, bk, bp, xres, single
+    emit({"phase": "batched", "card": smi,
+          "e2e_1080p_mpix_s": E2E_FRAMES * mp / wall1,
+          "e2e_1080p_batched_mpix_s": BATCHED_FRAMES * mp / wall3,
+          "e2e_frames": E2E_FRAMES, "e2e_wall_s": wall1,
+          "batched_frames": BATCHED_FRAMES, "batch": BATCH,
+          "batched_wall_s": wall3, "epf_launches_batch1": e2e_launches,
+          "epf_launches_batched": batched_launches,
+          "batched_vs_single_xyb_max_abs_diff": batch_err,
+          "epf_kernel_ms_batch": bk_ms, "epf_plain_ms_batch": bp_ms,
+          "epf_bound_ms_batch": bb_ms, "epf_bound_by_batch": bb_by,
+          "epf_max_abs_err_batch": b_err,
+          "epf_batch_shape": [BATCH, 3, 1080, 1920]})
+
+    # ---- 7. kernels (the line before the last) ----
     _phase[0] = "kernels"
     emit({"phase": "done", "wall_s": time.monotonic() - t0})
     emit({"kernels": [{
@@ -317,7 +572,8 @@ def main() -> int:
         "route": "cuda",
         "source": "libjxl_tpu_torch/csrc/epf.cu",
         "replaces": "libjxl_tpu/ops/epf_pallas.py:233",
-        "launches": main_launches,
+        "launches": (main_launches + post_launches + e2e_launches
+                     + batched_launches),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

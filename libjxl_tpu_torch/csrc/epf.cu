@@ -7,7 +7,10 @@
 // pass 1 (4 cross candidates, plus SAD), pass 2 (4 cross candidates,
 // single-pixel SAD), with the stages chosen by `gab` and `epf_iters`.
 //
-// Design. One thread block owns one TILE x TILE output tile. It loads
+// Design. One thread block owns one TILE x TILE output tile of one
+// frame of a batch (blockIdx.z; a batch is one launch, as the
+// reference's vmap is one dispatch, and frames may share one block map
+// or have one each). It loads
 // its input region, the tile plus a HALO = 1 + 3 + 2 + 1 = 7 pixel
 // border, for all three channels into shared memory, reading mirrored
 // coordinates at the frame edge (symmetric extension, the edge pixel
@@ -43,6 +46,7 @@
 
 struct EpfParams {
   int h, w, bw;
+  long long map_stride;    // floats between the frames' block maps (0: shared)
   int gab, epf_iters;
   float gw[3][3];          // normalised gaborish (w0, w1, w2) per channel
   float ch_scale[3];       // EPF channel scales
@@ -150,6 +154,9 @@ __global__ void __launch_bounds__(THREADS)
   const int y0 = blockIdx.y * TILE - HALO;
   const int x0 = blockIdx.x * TILE - HALO;
   const size_t hw = (size_t)p.h * p.w;
+  img += blockIdx.z * 3 * hw;
+  out += blockIdx.z * 3 * hw;
+  blocks += blockIdx.z * p.map_stride;
 
   for (int i = threadIdx.x; i < 3 * PLANE; i += blockDim.x) {
     const int c = i / PLANE;
@@ -200,18 +207,22 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// consts (host memory, 19 floats): gaborish (w0, w1, w2) x 3 channels,
-// channel scales x 3, (mul_in, mul_border) for passes 0, 1, 2, min_sigma.
-// Launches on `stream` and returns cudaGetLastError(); does not
-// synchronise.
+// img and out: n contiguous (3, h, w) frames; blocks: n maps of
+// map_stride floats each (map_stride 0: one map for every frame), rows
+// of bw. consts (host memory, 19 floats): gaborish (w0, w1, w2) x 3
+// channels, channel scales x 3, (mul_in, mul_border) for passes 0, 1,
+// 2, min_sigma. Launches on `stream` and returns cudaGetLastError();
+// does not synchronise.
 extern "C" int jxl_epf_launch(const void* img, const void* blocks,
-                              void* out, int h, int w, int bw, int gab,
+                              void* out, int n, int h, int w, int bw,
+                              long long map_stride, int gab,
                               int epf_iters, const float* consts,
                               void* stream) {
   EpfParams p;
   p.h = h;
   p.w = w;
   p.bw = bw;
+  p.map_stride = map_stride;
   p.gab = gab;
   p.epf_iters = epf_iters;
   for (int c = 0; c < 3; ++c)
@@ -226,7 +237,7 @@ extern "C" int jxl_epf_launch(const void* img, const void* blocks,
   cudaError_t err = cudaFuncSetAttribute(
       epf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((w + TILE - 1) / TILE, (h + TILE - 1) / TILE);
+  dim3 grid((w + TILE - 1) / TILE, (h + TILE - 1) / TILE, n);
   epf_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)img, (const float*)blocks, (float*)out, p);
   return (int)cudaGetLastError();

@@ -127,6 +127,75 @@ def feed_to_torch(feed: dict, device) -> dict:
     return t
 
 
+def feeds_to_torch(feeds: list, device) -> dict:
+    """N host feeds of one coefficient shape, all sparse and on the dense
+    class-mask path, -> one dict of tensors on ``device`` with a leading
+    batch axis (the batched decode's staging; the caller checks those
+    preconditions). Each array is stacked on the host and crosses in one
+    pinned copy. The 8x8-family bank is pruned to the union of the
+    frames' used slots. A frame that lacks a big-block class gets an
+    all-False mask and a zero table for it. The sparse indices are
+    offset by frame, so one scatter-add fills the (N, 3, H8, W8) image.
+
+    Keys as ``feed_to_torch`` (``class_masks``, never ``classes``), each
+    with a leading N, plus ``coeff_shape`` (N, 3, H8, W8); ``lf``,
+    ``image_hw`` and ``BW_blocks`` are the first frame's."""
+    dev = resolve_device(device)
+    f0 = feeds[0]
+    n = len(feeds)
+    cshape = tuple(f0["coeff_img"].shape)
+    used, mat_ids = _prune_mat_ids(np.stack([f["mat_ids"] for f in feeds]))
+    class_keys = tuple(sorted({k for f in feeds
+                               for k in (f.get("class_masks") or {})}))
+    bh, bw = f0["mat_ids"].shape
+
+    def stack(key, dtype):
+        return _stage(np.stack([np.asarray(f[key], dtype) for f in feeds]),
+                      dev)
+
+    def class_stack(k):
+        tbh, tbw = -(-bh // k[0]), -(-bw // k[1])
+        tables = np.zeros((n, 3, k[0] * k[1] * 64), np.float32)
+        masks = np.zeros((n, tbh, tbw), np.bool_)
+        for i, f in enumerate(feeds):
+            if k in (f.get("class_masks") or {}):
+                tables[i] = f["big_tables"][k]
+                masks[i] = f["class_masks"][k]
+        return _stage(tables, dev), _stage(masks, dev)
+
+    numel = int(np.prod(cshape))
+    nzi = np.concatenate([f["coeff_nz"][0].astype(np.int64) + i * numel
+                          for i, f in enumerate(feeds)])
+    nzv = np.concatenate([f["coeff_nz"][1] for f in feeds])
+    big = {k: class_stack(k) for k in class_keys}
+    return {
+        "image_hw": tuple(int(v) for v in f0["image_hw"]),
+        "BW_blocks": int(bw),
+        "coeff_shape": (n,) + cshape,
+        "coeff_nz": (_stage(nzi, dev), _stage(nzv, dev, np.int16)),
+        "lf": f0["lf"],
+        "mat_ids": _stage(mat_ids, dev).long(),
+        "mat_bank": _const(dev, ("bank", used), lambda: torch.from_numpy(
+            np.ascontiguousarray(family8_matrices()[list(used)]))),
+        "tables8": _stage(np.stack([np.asarray(f["tables8"])[list(used)]
+                                    for f in feeds]), dev, np.float32),
+        "raw_quant": stack("raw_quant", np.int32),
+        "dc": stack("dc", np.float32),
+        "fx": stack("fx", np.float32),
+        "fb": stack("fb", np.float32),
+        "inv_sigma": stack("inv_sigma", np.float32),
+        "biases": stack("biases", np.float32),
+        "inv_gs": _stage(np.array([f["inv_gs"] for f in feeds],
+                                  np.float32), dev),
+        "qmul": stack("qmul", np.float32),
+        "big_tables": {k: v[0] for k, v in big.items()},
+        "class_masks": {k: v[1] for k, v in big.items()},
+        "class_consts": {k: _const(dev, ("class", k),
+                                   lambda k=k: _class_tensors(*k))
+                         for k in class_keys},
+    }
+
+
 def _class_tensors(cy: int, cx: int):
     """Static per-class constants of the big-block LLF and IDCT: (ly, lx,
     mcy, mcx, sy, sx, ih, iw) as in the reference pipeline."""

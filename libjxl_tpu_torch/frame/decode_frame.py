@@ -3,9 +3,11 @@ wiring, ending in the host feed that the device pipeline consumes.
 
 Reference: lib/jxl/dec_frame.cc (FrameDecoder: InitFrame,
 ProcessSections, ProcessDCGlobal/DCGroup/ACGlobal/ACGroup), dec_group.cc
-(section split per group), toc.h section numbering. Frame features the
-device path does not render yet (patches, splines, noise, upsampling,
-extra channels, chroma subsampling, modular frames) raise
+(section split per group), toc.h section numbering. Upsampling, noise
+and splines ride in the feed as its ``"post"`` entry, for the device
+post stages. Frame features the device path does not render yet
+(patches, extra channels, splines together with upsampling, a spline
+wider than the device window, chroma subsampling, modular frames) raise
 NotImplementedError instead of being dropped.
 """
 
@@ -106,19 +108,24 @@ def decode_frame(r: BitReader, metadata: CodecMetadata,
         raise _unsupported("modular frame")
     if not fh.chroma_subsampling.is_444():
         raise _unsupported("chroma subsampling")
-    if fh.upsampling != 1:
-        raise _unsupported("upsampling")
     if metadata.m.num_extra_channels:
         raise _unsupported("extra channels")
 
     # ---- LfGlobal (section 0) ----
     lf = get(0)
     # Image features come first (dec_frame.cc ProcessDCGlobal:272-300).
-    for flag, name in ((FrameFlags.PATCHES, "patches"),
-                       (FrameFlags.SPLINES, "splines"),
-                       (FrameFlags.NOISE, "noise")):
-        if fh.flags & flag:
-            raise _unsupported(name)
+    if fh.flags & FrameFlags.PATCHES:
+        raise _unsupported("patches")
+    splines = None
+    if fh.flags & FrameFlags.SPLINES:
+        if fh.upsampling != 1:
+            raise _unsupported("splines together with upsampling")
+        from libjxl_tpu_torch.frame.splines import decode_splines
+        splines = decode_splines(lf, fd.xsize * fd.ysize)
+    noise_lut = None
+    if fh.flags & FrameFlags.NOISE:
+        from libjxl_tpu_torch.frame.noise import decode_noise
+        noise_lut = decode_noise(lf)
     matrices = DequantMatrices()
     matrices.decode_dc(lf)
     quantizer = Quantizer(matrices)
@@ -486,5 +493,33 @@ def decode_frame(r: BitReader, metadata: CodecMetadata,
     feed["inv_sigma"] = inv_sigma
     feed["lf"] = lfp0
     feed["image_hw"] = (fd.ysize, fd.xsize)
+    post = _post_stages(fh, fd, splines, noise_lut, cmap)
+    if post:
+        feed["post"] = post
     r.seek_bits(frame_end_bits)
     return DecodedFrame(header=fh, feed=feed)
+
+
+def _post_stages(fh, fd, splines, noise_lut, cmap) -> dict:
+    """The device post stages of the frame, as the reference's device
+    branch assembles them (libjxl_tpu/frame/decode_frame.py:587-627),
+    in the form ``tpu.pipeline.decode_frame_device2(post=...)`` takes;
+    empty when the frame has none."""
+    post = {}
+    if fh.upsampling != 1:
+        post["upsample"] = fh.upsampling
+    if splines is not None:
+        from libjxl_tpu_torch.ops.stages import (
+            SPLINE_R, spline_stroke_params,
+        )
+        args = spline_stroke_params(splines, cmap)
+        if args is None:
+            raise _unsupported(
+                f"a spline stroke wider than {SPLINE_R} pixels")
+        post["splines"] = args
+    if noise_lut is not None:
+        post["noise"] = (noise_lut, cmap.base_correlation_x,
+                         cmap.base_correlation_b, fd.group_dim, 1)
+    if post:
+        post["final_hw"] = (fd.ysize_upsampled, fd.xsize_upsampled)
+    return post

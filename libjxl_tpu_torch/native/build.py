@@ -9,6 +9,18 @@ once (pytest-xdist workers) neither race on the output nor load a
 half-written file.
 
     python -m libjxl_tpu_torch.native.build
+
+Sanitizer hardening: set JXL_NATIVE_SANITIZE=address (or
+address,undefined / undefined) to build ``jxl_native.san.so`` with
+-fsanitize instead, and run the tests against it:
+
+    export JXL_NATIVE_SANITIZE=address,undefined
+    python -m libjxl_tpu_torch.native.build
+    LD_PRELOAD=$(g++ -print-file-name=libasan.so) \
+        python -m pytest tests/test_torch_host.py -q
+
+(The LD_PRELOAD is required because the host binary is python, not an
+asan-linked executable.)
 """
 
 from __future__ import annotations
@@ -22,6 +34,11 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(_DIR, "jxl_native.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 OUT = os.path.join(BUILD_DIR, "jxl_native.so")
+OUT_SAN = os.path.join(BUILD_DIR, "jxl_native.san.so")
+
+
+def _sanitize_mode() -> str:
+    return os.environ.get("JXL_NATIVE_SANITIZE", "")
 
 
 def _fresh(out: str, src: str) -> bool:
@@ -52,18 +69,28 @@ def build_locked(out: str, src: str, cmd: list, force: bool = False) -> str:
     return res.stdout + res.stderr
 
 
-def build(force: bool = False) -> str | None:
-    """Path of the host library, built if stale; None when g++ fails (the
-    caller then uses the pure-Python paths)."""
+def native_command(san: str = "") -> tuple:
+    """(output path, g++ command without ``-o``) of the host library;
+    ``san`` is a JXL_NATIVE_SANITIZE value ("" for the plain build)."""
     cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-shared",
-           "-fPIC", SRC]
+           "-fPIC"]
+    if san:
+        cmd += [f"-fsanitize={san}", "-fno-omit-frame-pointer", "-g"]
+    return (OUT_SAN if san else OUT), cmd + [SRC]
+
+
+def build(force: bool = False) -> str | None:
+    """Path of the host library (the sanitizer build under
+    JXL_NATIVE_SANITIZE), built if stale; None when g++ fails (the
+    caller then uses the pure-Python paths)."""
+    out, cmd = native_command(_sanitize_mode())
     try:
-        build_locked(OUT, SRC, cmd, force)
+        build_locked(out, SRC, cmd, force)
     except (subprocess.CalledProcessError, FileNotFoundError) as e:
         msg = getattr(e, "stderr", str(e))
         print(f"native build failed: {msg}", file=sys.stderr)
         return None
-    return OUT
+    return out
 
 
 if __name__ == "__main__":

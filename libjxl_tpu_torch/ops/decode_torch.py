@@ -17,11 +17,15 @@ from libjxl_tpu_torch.color.constants import (
 
 
 def adjust_quant_bias(x: torch.Tensor, biases: torch.Tensor) -> torch.Tensor:
-    """quantizer-inl.h AdjustQuantBias on float32 quantized values with
-    the channel on axis 0: 0 stays 0, +-1 map to +-bias[c], any other x
-    becomes x - bias[3] / x."""
-    bias_c = biases[:3].reshape((3,) + (1,) * (x.ndim - 1))
-    general = x - biases[3] / torch.where(x == 0, 1.0, x)
+    """quantizer-inl.h AdjustQuantBias on float32 quantized values: 0
+    stays 0, +-1 map to +-bias[c], any other x becomes x - bias[3] / x.
+    ``biases`` is (4,) with the channel on axis 0 of ``x``, or (NB, 4)
+    with the frame on axis 0 and the channel on axis 1."""
+    lead = biases.shape[:-1]
+    rest = (1,) * (x.ndim - len(lead) - 1)
+    bias_c = biases[..., :3].reshape(lead + (3,) + rest)
+    b3 = biases[..., 3].reshape(lead + (1,) + rest)
+    general = x - b3 / torch.where(x == 0, 1.0, x)
     return torch.where(x == 0, 0.0,
                        torch.where(x == 1, bias_c,
                                    torch.where(x == -1, -bias_c, general)))

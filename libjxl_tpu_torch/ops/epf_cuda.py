@@ -5,9 +5,11 @@ Replaces the Pallas TPU kernel libjxl_tpu/ops/epf_pallas.py
 built by nvcc for sm_90a into a plain-C shared library at first use and
 bound with ctypes (no PyTorch headers, so the build takes seconds).
 
-``apply_loop_filters`` takes the same arguments as the JAX function. On
-a CPU tensor it runs the plain PyTorch version (ops/filters.py); on a
-CUDA tensor it launches the kernel or raises, and never falls back.
+``apply_loop_filters`` takes the same arguments as the JAX function,
+and also a batch: (N, 3, H, W) frames are filtered by one launch, as the
+reference's ``vmap`` is one dispatch. On a CPU tensor it runs the plain
+PyTorch version (ops/filters.py); on a CUDA tensor it launches the
+kernel or raises, and never falls back.
 """
 
 from __future__ import annotations
@@ -61,7 +63,8 @@ def _load():
         lib.jxl_epf_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p]
         _lib = lib
     return _lib
 
@@ -88,10 +91,11 @@ def apply_loop_filters(img, inv_sigma_blocks, *, epf_iters=2, gab=True,
                        epf_pass2_sigma_scale=6.5,
                        epf_border_sad_mul=2.0 / 3,
                        epf_channel_scale=filters.DEFAULT_CHANNEL_SCALE):
-    """Gaborish + EPF chain on (3, H, W) float32 ``img`` with the
-    (ceil(H/8), ceil(W/8)) ``inv_sigma_blocks`` map. Returns a new
-    tensor; on a card it is written by one kernel launch on the current
-    stream, without a synchronisation."""
+    """Gaborish + EPF chain on (3, H, W) or (N, 3, H, W) float32 ``img``
+    with the (ceil(H/8), ceil(W/8)) ``inv_sigma_blocks`` map, or
+    (N, ...) maps, one per frame. Returns a new tensor; on a card it is
+    written by one kernel launch on the current stream (one for the
+    whole batch), without a synchronisation."""
     global launches
     kw = dict(epf_iters=epf_iters, gab=gab, gab_weights=gab_weights,
               epf_pass0_sigma_scale=epf_pass0_sigma_scale,
@@ -108,11 +112,18 @@ def apply_loop_filters(img, inv_sigma_blocks, *, epf_iters=2, gab=True,
         raise TypeError("img and inv_sigma_blocks must be float32")
     if not (img.is_contiguous() and inv_sigma_blocks.is_contiguous()):
         raise ValueError("img and inv_sigma_blocks must be contiguous")
-    if img.dim() != 3 or img.shape[0] != 3:
-        raise ValueError(f"img must be (3, H, W), got {tuple(img.shape)}")
-    _, h, w = img.shape
-    if tuple(inv_sigma_blocks.shape) != (-(-h // 8), -(-w // 8)):
-        raise ValueError(f"inv_sigma_blocks must be {(-(-h // 8), -(-w // 8))}"
+    if img.dim() not in (3, 4) or img.shape[-3] != 3:
+        raise ValueError("img must be (3, H, W) or (N, 3, H, W), got "
+                         f"{tuple(img.shape)}")
+    n = img.shape[0] if img.dim() == 4 else 1
+    h, w = img.shape[-2:]
+    bmap = (-(-h // 8), -(-w // 8))
+    if tuple(inv_sigma_blocks.shape) == bmap:
+        map_stride = 0
+    elif img.dim() == 4 and tuple(inv_sigma_blocks.shape) == (n,) + bmap:
+        map_stride = bmap[0] * bmap[1]
+    else:
+        raise ValueError(f"inv_sigma_blocks must be {bmap} or {(n,) + bmap}"
                          f", got {tuple(inv_sigma_blocks.shape)}")
     if not gab and epf_iters <= 0:
         return img
@@ -125,7 +136,7 @@ def apply_loop_filters(img, inv_sigma_blocks, *, epf_iters=2, gab=True,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.jxl_epf_launch(
             img.data_ptr(), inv_sigma_blocks.data_ptr(), out.data_ptr(),
-            h, w, inv_sigma_blocks.shape[1], int(bool(gab)),
+            n, h, w, bmap[1], map_stride, int(bool(gab)),
             int(epf_iters), ctypes.addressof(consts), stream)
     if rc != 0:
         raise RuntimeError(f"EPF kernel launch failed: CUDA error {rc}")

@@ -50,16 +50,16 @@ def gaborish_weights(gab_weights):
 
 
 def gaborish(img: torch.Tensor, gab_weights) -> torch.Tensor:
-    """img: (3, H, W); gab_weights: (3, 2) [w1, w2] per channel."""
+    """img: (..., 3, H, W); gab_weights: (3, 2) [w1, w2] per channel."""
     outs = []
     for c, (w0, w1, w2) in enumerate(gaborish_weights(gab_weights)):
-        p = pad_symmetric(img[c], 1)
-        outs.append(p[1:-1, 1:-1] * w0
-                    + (p[1:-1, :-2] + p[1:-1, 2:] + p[:-2, 1:-1]
-                       + p[2:, 1:-1]) * w1
-                    + (p[:-2, :-2] + p[:-2, 2:] + p[2:, :-2]
-                       + p[2:, 2:]) * w2)
-    return torch.stack(outs)
+        p = pad_symmetric(img[..., c, :, :], 1)
+        outs.append(p[..., 1:-1, 1:-1] * w0
+                    + (p[..., 1:-1, :-2] + p[..., 1:-1, 2:]
+                       + p[..., :-2, 1:-1] + p[..., 2:, 1:-1]) * w1
+                    + (p[..., :-2, :-2] + p[..., :-2, 2:]
+                       + p[..., 2:, :-2] + p[..., 2:, 2:]) * w2)
+    return torch.stack(outs, dim=-3)
 
 
 def _sad_mul(h: int, w: int, sm: float, bsm: float, device):
@@ -75,14 +75,14 @@ def _sad_mul(h: int, w: int, sm: float, bsm: float, device):
 
 
 def _expand_blocks(block_map: torch.Tensor, h: int, w: int):
-    e = block_map.repeat_interleave(8, 0).repeat_interleave(8, 1)
-    return e[:h, :w]
+    e = block_map.repeat_interleave(8, -2).repeat_interleave(8, -1)
+    return e[..., :h, :w]
 
 
 def _channel_sum(x):
-    """(x[0] + x[1]) + x[2]: one fixed order on every device (a reduction
-    kernel may pair the terms differently)."""
-    return x[0] + x[1] + x[2]
+    """(x0 + x1) + x2 over the channel axis -3: one fixed order on every
+    device (a reduction kernel may pair the terms differently)."""
+    return x[..., 0, :, :] + x[..., 1, :, :] + x[..., 2, :, :]
 
 
 def _epf_pass(img, inv_sigma_blocks, *, pad, plus, cands, sigma_scale,
@@ -90,7 +90,7 @@ def _epf_pass(img, inv_sigma_blocks, *, pad, plus, cands, sigma_scale,
     """One EPF pass over the whole frame: every candidate is a shifted
     window of the padded frame; the plus-shaped SAD sums the shared
     channel-scaled difference field at five shifts."""
-    _, h, w = img.shape
+    h, w = img.shape[-2:]
     sm = sigma_scale * 1.65
     blocks = _expand_blocks(inv_sigma_blocks, h, w)
     inv_sigma = blocks * _sad_mul(h, w, sm, sm * border_sad_mul,
@@ -103,22 +103,24 @@ def _epf_pass(img, inv_sigma_blocks, *, pad, plus, cands, sigma_scale,
     acc = img
     wsum = torch.ones((h, w), dtype=torch.float32, device=img.device)
     for sy, sx in cands:
-        at_c = p[:, pad + sy:pad + sy + h, pad + sx:pad + sx + w]
+        at_c = p[..., pad + sy:pad + sy + h, pad + sx:pad + sx + w]
         if single_pixel_sad:
             sad = _channel_sum(torch.abs(at_c - img) * scales)
         else:
-            base = p[:, pad - ext:pad + ext + h, pad - ext:pad + ext + w]
-            offw = p[:, pad - ext + sy:pad + ext + sy + h,
+            base = p[..., pad - ext:pad + ext + h, pad - ext:pad + ext + w]
+            offw = p[..., pad - ext + sy:pad + ext + sy + h,
                      pad - ext + sx:pad + ext + sx + w]
             d = _channel_sum(torch.abs(base - offw) * scales)
-            sad = d[ext + plus[0][0]:ext + plus[0][0] + h,
+            sad = d[..., ext + plus[0][0]:ext + plus[0][0] + h,
                     ext + plus[0][1]:ext + plus[0][1] + w]
             for py, px in plus[1:]:
-                sad = sad + d[ext + py:ext + py + h, ext + px:ext + px + w]
+                sad = sad + d[..., ext + py:ext + py + h,
+                              ext + px:ext + px + w]
         wgt = torch.clamp_min(sad * inv_sigma + 1.0, 0.0)
-        acc = acc + wgt[None] * at_c
+        acc = acc + wgt[..., None, :, :] * at_c
         wsum = wsum + wgt
-    return torch.where(skip[None], img, acc / wsum[None])
+    return torch.where(skip[..., None, :, :], img,
+                       acc / wsum[..., None, :, :])
 
 
 def apply_loop_filters(img, inv_sigma_blocks, *, epf_iters=2, gab=True,
@@ -129,9 +131,10 @@ def apply_loop_filters(img, inv_sigma_blocks, *, epf_iters=2, gab=True,
                        epf_channel_scale=DEFAULT_CHANNEL_SCALE):
     """Gaborish + EPF chain (stage order dec_cache.cc:150-170).
 
-    img: (3, H, W) float32; inv_sigma_blocks: (ceil(H/8), ceil(W/8))
-    1/sigma per block (compute_sigma_map). epf_iters/gab select the
-    stages."""
+    img: (3, H, W) or (N, 3, H, W) float32; inv_sigma_blocks:
+    (ceil(H/8), ceil(W/8)) 1/sigma per block (compute_sigma_map), or
+    (N, ...) with one map per frame. epf_iters/gab select the stages.
+    Each frame of a batch is computed as it would be alone."""
     out = img
     if gab:
         out = gaborish(out, gab_weights)

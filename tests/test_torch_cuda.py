@@ -1,6 +1,7 @@
 """Tests that need an NVIDIA card: the hand-written EPF kernel against
-its plain PyTorch version, and the decode on the card against the plain
-CPU path. They import neither jax nor the JAX package, so they run on a
+its plain PyTorch version (single frames, batches, custom loop-filter
+weights), and the decode on the card (single, batched, with post
+stages) against the plain CPU path. They import neither jax nor the JAX package, so they run on a
 machine that has only the port:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -24,6 +25,8 @@ STAGES = [(it, gab) for it in (0, 1, 2, 3) for gab in (True, False)
           if it or gab]
 CORPUS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "bench_corpus")
+POST_CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "torch_corpus")
 
 pytestmark = pytest.mark.cuda
 
@@ -98,3 +101,122 @@ def test_pipeline_on_card_matches_single_decodes(cuda_device):
     for o in outs:
         assert o.device.type == "cuda"
         assert torch.equal(o, ref)
+
+
+@pytest.mark.parametrize("n,shape,per_frame_map", [
+    (3, (96, 200), True), (2, (61, 117), True), (3, (61, 117), False)])
+@pytest.mark.parametrize("epf_iters,gab", [(3, True), (2, False),
+                                           (1, True)])
+def test_batched_kernel_matches_plain(n, shape, per_frame_map, epf_iters,
+                                      gab, cuda_device):
+    """One launch filters the whole batch, each frame as the plain
+    version filters it alone."""
+    rng = np.random.default_rng(13)
+    h, w = shape
+    x = torch.from_numpy(rng.normal(0, 0.3, (n, 3, h, w))
+                         .astype(np.float32)).to(cuda_device)
+    bmap = ((n,) if per_frame_map else ()) + ((h + 7) // 8, (w + 7) // 8)
+    s = torch.from_numpy(rng.uniform(-6.0, -0.05, bmap)
+                         .astype(np.float32)).to(cuda_device)
+    before = epf_cuda.launches
+    got = epf_cuda.apply_loop_filters(x, s, epf_iters=epf_iters, gab=gab)
+    assert epf_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    for i in range(n):
+        ref = filters.apply_loop_filters(
+            x[i], s[i] if per_frame_map else s, epf_iters=epf_iters,
+            gab=gab)
+        assert (got[i] - ref).abs().max().item() <= TOL
+
+
+def _custom_loop_filter(epf_iters):
+    """Custom gaborish weights, EPF channel scales and sigma parameters,
+    written to a bitstream and read back."""
+    from libjxl_tpu_torch.bitstream.bit_io import BitReader, BitWriter
+    from libjxl_tpu_torch.bitstream.fields import bundle_read, bundle_write
+    from libjxl_tpu_torch.frame.frame_header import LoopFilter
+    lf = LoopFilter(all_default=False, gab=True, gab_custom=True,
+                    gab_x_weight1=0.09, gab_x_weight2=0.04,
+                    gab_y_weight1=0.13, gab_y_weight2=0.07,
+                    gab_b_weight1=0.1, gab_b_weight2=0.03,
+                    epf_iters=epf_iters, epf_weight_custom=True,
+                    epf_channel_scale=[32.0, 6.0, 2.5],
+                    epf_sigma_custom=True, epf_quant_mul=0.55,
+                    epf_pass0_sigma_scale=0.75, epf_pass2_sigma_scale=5.0,
+                    epf_border_sad_mul=0.5)
+    w = BitWriter()
+    bundle_write(lf, w)
+    w.align_to_byte()
+    out = LoopFilter()
+    bundle_read(BitReader(w.get_bytes()), out)
+    return out
+
+
+@pytest.mark.parametrize("epf_iters", [1, 2, 3])
+def test_kernel_custom_loop_filter_weights(epf_iters, cuda_device):
+    """Custom header weights: the kernel within 2e-6 of the plain version
+    and within 5e-5 of the host chain (tests/test_filters_tpu.py's atol)."""
+    from libjxl_tpu_torch.pipeline import loop_filters as host
+    from libjxl_tpu_torch.tpu.pipeline import loop_filter_params
+    lf = _custom_loop_filter(epf_iters)
+    rng = np.random.default_rng(epf_iters)
+    img = rng.normal(0.5, 0.2, (3, 64, 80)).astype(np.float32)
+    sig = host.compute_sigma_map(lf, rng.integers(100, 6000, (8, 10)),
+                                 rng.integers(0, 8, (8, 10)),
+                                 0.0002).astype(np.float32)
+    ref = host.gaborish(img, lf)
+    if epf_iters >= 3:
+        ref = host.epf0(ref, lf, sig)
+    ref = host.epf1(ref, lf, sig)
+    if epf_iters >= 2:
+        ref = host.epf2(ref, lf, sig)
+    kw = loop_filter_params(lf)
+    x = torch.from_numpy(img).to(cuda_device)
+    s = torch.from_numpy(sig).to(cuda_device)
+    got = epf_cuda.apply_loop_filters(x, s, **kw)
+    plain = filters.apply_loop_filters(x, s, **kw)
+    torch.cuda.synchronize()
+    assert (got - plain).abs().max().item() <= TOL
+    np.testing.assert_allclose(got.cpu().numpy(), ref, atol=5e-5)
+
+
+@pytest.mark.parametrize("name,hw", [
+    ("4k_hdr_pq_d2_e5_up2_iso3200_epf3.jxl", (2160, 3840)),
+    ("1080p_splines_d1.jxl", (1080, 1920))])
+def test_post_path_on_card_matches_cpu(name, hw, cuda_device):
+    """Upsampling + noise, and splines, on the card: XYB within XYB_TOL of
+    the CPU path (splines scatter-add in no fixed order on the card)."""
+    with open(os.path.join(POST_CORPUS, name), "rb") as f:
+        data = f.read()
+    before = epf_cuda.launches
+    pq = libjxl_tpu_torch.decode_device(data, out="pq16")
+    xyb = libjxl_tpu_torch.decode_device(data, out="xyb")
+    torch.cuda.synchronize()
+    assert epf_cuda.launches == before + 2
+    assert pq.dtype == torch.uint16 and tuple(pq.shape) == (3,) + hw
+    assert pq.device.type == "cuda"
+    ref = libjxl_tpu_torch.decode_device(data, out="xyb", device="cpu")
+    assert (xyb.cpu() - ref).abs().max().item() <= XYB_TOL
+
+
+def test_batched_pipeline_on_card(cuda_device):
+    """batch=3 over four 1080p frames: two launches (a full batch and the
+    flushed rest); each frame within 1e-5 XYB of its single decode; the
+    outputs stay valid after close()."""
+    with open(os.path.join(CORPUS, "1080p_hdr_pq_d1_e5_prog_epf3.jxl"),
+              "rb") as f:
+        data = f.read()
+    ref = libjxl_tpu_torch.decode_device(data, out="xyb")
+    before = epf_cuda.launches
+    pipe = libjxl_tpu_torch.DecodePipeline(out="xyb", batch=3)
+    futs = [pipe.submit(data) for _ in range(4)]
+    pipe.close()
+    outs = [f.result() for f in futs]
+    assert epf_cuda.launches == before + 2
+    del futs
+    scratch = torch.full((64, 2 ** 20), 7.0, device=cuda_device)
+    torch.cuda.synchronize()
+    for o in outs:
+        assert o.device.type == "cuda" and tuple(o.shape) == (3, 1080, 1920)
+        assert (o - ref).abs().max().item() <= 1e-5
+    del scratch

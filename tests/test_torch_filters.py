@@ -93,3 +93,58 @@ def test_wrapper_takes_plain_version_on_cpu():
     np.testing.assert_array_equal(
         got, _port(img, sig, epf_iters=3, gab=True))
     assert epf_cuda.launches == 0
+
+
+def _custom_loop_filter(epf_iters):
+    """A frame header's loop filter with custom gaborish weights, EPF
+    channel scales and EPF sigma parameters, written to a bitstream and
+    read back, as a decoder sees it."""
+    from libjxl_tpu_torch.bitstream.bit_io import BitReader, BitWriter
+    from libjxl_tpu_torch.bitstream.fields import bundle_read, bundle_write
+    from libjxl_tpu_torch.frame.frame_header import LoopFilter
+    lf = LoopFilter(all_default=False, gab=True, gab_custom=True,
+                    gab_x_weight1=0.09, gab_x_weight2=0.04,
+                    gab_y_weight1=0.13, gab_y_weight2=0.07,
+                    gab_b_weight1=0.1, gab_b_weight2=0.03,
+                    epf_iters=epf_iters, epf_weight_custom=True,
+                    epf_channel_scale=[32.0, 6.0, 2.5],
+                    epf_sigma_custom=True, epf_quant_mul=0.55,
+                    epf_pass0_sigma_scale=0.75, epf_pass2_sigma_scale=5.0,
+                    epf_border_sad_mul=0.5)
+    w = BitWriter()
+    bundle_write(lf, w)
+    w.align_to_byte()
+    out = LoopFilter()
+    bundle_read(BitReader(w.get_bytes()), out)
+    assert out.gab_custom and out.epf_weight_custom and out.epf_sigma_custom
+    return out
+
+
+@pytest.mark.parametrize("epf_iters", [1, 2, 3])
+def test_custom_loop_filter_weights_match_host(epf_iters):
+    """The frame header's custom weights reach the plain version
+    (through ``loop_filter_params``), which then matches the host chain
+    (gaborish, EPF0-2 of pipeline/loop_filters.py) at the atol of
+    tests/test_filters_tpu.py."""
+    from libjxl_tpu_torch.pipeline import loop_filters as host
+    from libjxl_tpu_torch.tpu.pipeline import loop_filter_params
+    lf = _custom_loop_filter(epf_iters)
+    rng = np.random.default_rng(epf_iters)
+    img = rng.normal(0.5, 0.2, (3, 64, 80)).astype(np.float32)
+    sig = host.compute_sigma_map(lf, rng.integers(100, 6000, (8, 10)),
+                                 rng.integers(0, 8, (8, 10)),
+                                 0.0002).astype(np.float32)
+    ref = host.gaborish(img, lf)
+    if epf_iters >= 3:
+        ref = host.epf0(ref, lf, sig)
+    ref = host.epf1(ref, lf, sig)
+    if epf_iters >= 2:
+        ref = host.epf2(ref, lf, sig)
+    kw = loop_filter_params(lf)
+    got = epf_cuda.apply_loop_filters(torch.from_numpy(img),
+                                      torch.from_numpy(sig), **kw)
+    np.testing.assert_allclose(got.numpy(), ref, atol=5e-5)
+    default = filters.apply_loop_filters(torch.from_numpy(img),
+                                         torch.from_numpy(sig),
+                                         epf_iters=epf_iters, gab=True)
+    assert np.abs(default.numpy() - ref).max() > 1e-3

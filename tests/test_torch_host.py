@@ -72,16 +72,127 @@ def test_container_feed_bit_exact():
     assert_same(jax_parse(data), parse_to_feed(data))
 
 
-@pytest.mark.parametrize("kwargs,stage", [
-    (dict(photon_noise_iso=3200), "noise"),
-    (dict(resampling=2), "upsampling"),
-])
-def test_unported_stage_raises(kwargs, stage):
-    data = simple.encode(_image(64, 64), distance=1.0, effort=5, **kwargs)
+def _screenshot():
+    """Repeated glyphs: the encoder stores them as patches of a
+    reference frame."""
+    img = np.full((96, 160, 3), 235, np.uint8)
+    glyph = np.zeros((9, 7), bool)
+    glyph[1:8, 1] = True
+    glyph[1, 2:6] = True
+    glyph[4, 2:5] = True
+    for y in range(6, 80, 24):
+        for x in range(6, 150, 13):
+            img[y:y + 9, x:x + 7][glyph] = (30, 30, 120)
+    return img
+
+
+def _rgba():
+    img = _image(64, 64)
+    return np.concatenate([img, np.full((64, 64, 1), 200, np.uint8)], -1)
+
+
+def _splines_upsampled():
+    """A 2x-resampled frame that also carries a spline."""
+    from libjxl_tpu.api.simple import CodecMetadata
+    from libjxl_tpu.bitstream.bit_io import BitWriter
+    from libjxl_tpu.color.xyb import linear_rgb_to_xyb, srgb_to_linear
+    from libjxl_tpu.frame.encode_frame import encode_vardct_frame
+    from libjxl_tpu.frame.headers import BitDepth, write_codestream_headers
+    from libjxl_tpu.frame.splines import Splines, quantize_spline
+    cps = [(10.0, 20.0), (40.0, 10.0), (60.0, 50.0)]
+    color_dct = np.zeros((3, 32))
+    color_dct[1, 0] = 0.4
+    sigma_dct = np.zeros(32)
+    sigma_dct[0] = 2.0
+    s = Splines(splines=[quantize_spline(cps, color_dct, sigma_dct, 0,
+                                         0.0, 1.0)],
+                starting_points=[cps[0]])
+    meta = CodecMetadata()
+    meta.size.set(80, 64)
+    meta.m.bit_depth = BitDepth.uint(8)
+    meta.m.xyb_encoded = True
+    w = BitWriter()
+    write_codestream_headers(meta, w)
+    srgb = _image(64, 80).astype(np.float32) / 255.0
+    xyb = linear_rgb_to_xyb(srgb_to_linear(srgb).transpose(2, 0, 1))
+    encode_vardct_frame(xyb, meta, w, distance=1.0, effort=5, splines=s,
+                        resampling=2)
+    w.align_to_byte()
+    return w.get_bytes()
+
+
+def _parse_every_frame(data):
+    """The port's frame decode on every frame of the stream in order (the
+    patch sheet is a frame of its own, ahead of the frame that uses it)."""
+    from libjxl_tpu_torch.bitstream.bit_io import BitReader
+    from libjxl_tpu_torch.frame.decode_frame import decode_frame
+    from libjxl_tpu_torch.frame.headers import read_codestream_headers
+    r = BitReader(data)
+    meta = read_codestream_headers(r)
+    while not decode_frame(r, meta).header.is_last:
+        pass
+
+
+@pytest.mark.parametrize("make,stage", [
+    (lambda: simple.encode(_screenshot(), distance=1.0, effort=5,
+                           patches=True), "patches"),
+    (lambda: simple.encode(_rgba(), distance=1.0, effort=5),
+     "extra channels"),
+    (_splines_upsampled, "splines together with upsampling"),
+], ids=["patches", "extra_channels", "splines_upsampled"])
+def test_unported_stage_raises(make, stage):
+    """Frame features the device path does not render yet raise, naming
+    the feature (noise, upsampling and splines alone are decoded: see
+    tests/test_torch_stages.py)."""
     with pytest.raises(NotImplementedError, match=stage):
-        parse_to_feed(data)
+        _parse_every_frame(make())
+
+
+POST_CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "torch_corpus")
+
+
+@pytest.mark.parametrize("name,stages", [
+    ("4k_hdr_pq_d2_e5_up2_iso3200_epf3.jxl",
+     {"upsample", "noise", "final_hw"}),
+    ("1080p_splines_d1.jxl", {"splines", "final_hw"})])
+def test_post_corpus_feed_bit_exact(name, stages):
+    """The committed post-stage streams: the feed equals JAX's bit for
+    bit apart from the port's ``"post"`` entry (the reference's feed
+    path drops the stages)."""
+    with open(os.path.join(POST_CORPUS, name), "rb") as f:
+        data = f.read()
+    feed = parse_to_feed(data)
+    post = feed.pop("post")
+    assert set(post) == stages
+    assert_same(jax_parse(data), feed)
+    assert feed["image_hw"] == (1080, 1920)
+    assert post["final_hw"] == ((2160, 3840) if "upsample" in stages
+                                else (1080, 1920))
 
 
 def test_package_reexports_entry_points():
     assert libjxl_tpu_torch.parse_to_feed is parse_to_feed
     assert callable(libjxl_tpu_torch.decode_device)
+
+
+def test_native_sanitizer_build_command(monkeypatch):
+    """JXL_NATIVE_SANITIZE selects the sanitizer build of the host
+    library (the command only; nothing is built under ASan here)."""
+    from libjxl_tpu_torch.native import build
+    out, cmd = build.native_command("address,undefined")
+    assert out == build.OUT_SAN and out.endswith("jxl_native.san.so")
+    assert {"-fsanitize=address,undefined", "-fno-omit-frame-pointer",
+            "-g"} <= set(cmd)
+    out, cmd = build.native_command("")
+    assert out == build.OUT
+    assert not [c for c in cmd if c.startswith("-fsanitize")]
+    seen = {}
+    monkeypatch.setattr(build, "build_locked",
+                        lambda out, src, cmd, force: seen.update(
+                            out=out, cmd=cmd) or "")
+    monkeypatch.setenv("JXL_NATIVE_SANITIZE", "address")
+    assert build.build() == build.OUT_SAN
+    assert "-fsanitize=address" in seen["cmd"] and seen["out"] == build.OUT_SAN
+    monkeypatch.delenv("JXL_NATIVE_SANITIZE")
+    assert build.build() == build.OUT and "-g" not in seen["cmd"]

@@ -47,11 +47,14 @@ _IMPORT = re.compile(
     r"|from\s+(jax|libjxl_tpu)\b(?!_torch)[\w.]*\s+import)", re.M)
 
 
-def test_port_sources_import_no_jax_and_no_reference_package():
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+def _port_sources():
     for d, dirs, files in os.walk(PORT):
         dirs[:] = [x for x in dirs if x != "_build"]   # build outputs
-        paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
+        yield from (os.path.join(d, f) for f in files if f.endswith(".py"))
+
+
+def test_port_sources_import_no_jax_and_no_reference_package():
+    paths = [os.path.join(ROOT, "chip_smoke.py"), *_port_sources()]
     assert len(paths) > 40
     offenders = []
     for p in paths:
@@ -63,3 +66,33 @@ def test_port_sources_import_no_jax_and_no_reference_package():
         if re.search(r"[\"'](jax|libjxl_tpu)[\"'.]", src):
             offenders.append(f"{os.path.relpath(p, ROOT)}: dynamic import")
     assert not offenders, offenders
+
+
+def _module_exists(name: str) -> bool:
+    base = os.path.join(ROOT, *name.split("."))
+    return os.path.isfile(base + ".py") or \
+        os.path.isfile(os.path.join(base, "__init__.py"))
+
+
+def test_every_imported_port_module_exists():
+    """Every ``libjxl_tpu_torch.*`` module that a port source imports,
+    at the top or inside a function, exists in the port."""
+    import ast
+    named = set()
+    for p in _port_sources():
+        with open(p) as f:
+            tree = ast.parse(f.read(), p)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module \
+                    and node.level == 0:
+                mods = [node.module]
+            else:
+                continue
+            named.update((m, os.path.relpath(p, ROOT)) for m in mods
+                         if m.split(".")[0] == "libjxl_tpu_torch")
+    assert len({m for m, _ in named}) > 40
+    missing = sorted(f"{src}: {m}" for m, src in named
+                     if not _module_exists(m))
+    assert not missing, missing
