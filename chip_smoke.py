@@ -14,18 +14,26 @@ timed stage by stage; and the batched path: ``DecodePipeline`` at
 phases run it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-only
 
 Prints one JSON line per phase, the card's name and power limit as
 nvidia-smi gives them, a ``kernels`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 there is no CUDA device, when any phase fails, or when the run exceeds
 its time budget.
+
+``--kernel-only`` builds only the kernel, runs the kernel-vs-plain phase
+and times the kernel on synthetic frames (a 4K frame and a batch of
+three 1080p frames), and ends with a ``kernel_only_done`` line instead
+of the ``ok`` line.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -44,6 +52,11 @@ BUDGET_S = 900          # hard limit, builds included
 KERNEL_TOL = 2e-6       # kernel vs plain version (reference's own bound)
 XYB_TOL = 1e-4          # card vs CPU decode (port vs JAX tests' bound)
 SUSTAINED_DECODES = 12
+# Shapes where the kernel's mirrored tables, sigma plane and field boxes
+# meet the frame edge on both sides of one tile.
+EDGE_SHAPES = ((1, 1), (5, 3), (7, 300), (300, 7), (33, 9))
+STAGES = [(it, gab) for it in (0, 1, 2, 3) for gab in (True, False)
+          if it or gab]
 
 # NVIDIA H100 SXM data sheet (dense, no sparsity), at the 700 W limit.
 PEAK_BYTES_PER_S = 3.35e12
@@ -96,6 +109,26 @@ def bound_ms(h: int, w: int, bh: int, bw: int, epf_iters: int,
                                  else "operations"), nbytes, ops
 
 
+def ptxas_summary(log: str) -> dict:
+    """Registers, stack and spills per kernel instance from nvcc's
+    ``-Xptxas -v`` messages, keyed ``gab<g>_iters<i>``."""
+    out: dict = {}
+    cur = None
+    for ln in log.splitlines():
+        m = re.search(r"epf_kernelILi(\d)ELi(\d)E", ln)
+        if m and ("entry function" in ln or "properties for" in ln):
+            cur = out.setdefault(f"gab{m[1]}_iters{m[2]}", {})
+        elif cur is not None and (m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                r"(\d+) bytes spill loads", ln)):
+            cur.update(stack=int(m[1]), spill_stores=int(m[2]),
+                       spill_loads=int(m[3]))
+        elif cur is not None and (m := re.search(r"Used (\d+) registers",
+                                                 ln)):
+            cur["registers"] = int(m[1])
+    return out
+
+
 def cuda_ms(torch, fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` runs (CUDA events)."""
     start = torch.cuda.Event(enable_timing=True)
@@ -136,7 +169,41 @@ def custom_loop_filter():
     return out
 
 
-def main() -> int:
+def kernel_only_timing(torch, np, epf_cuda, dev, rng, smi):
+    """The kernel (gaborish + three passes) on a synthetic 4K frame and a
+    synthetic batch of three 1080p frames with one map each, against its
+    bound."""
+    cases = {}
+    for name, shape in (("4k", (3, 2160, 3840)),
+                        ("batch_3x1080p", (3, 3, 1080, 1920))):
+        h, w = shape[-2:]
+        n = shape[0] if len(shape) == 4 else 1
+        img = torch.from_numpy(rng.normal(0, 0.3, shape).astype(
+            np.float32)).to(dev)
+        maps = shape[:-3] + ((h + 7) // 8, (w + 7) // 8)
+        sig = torch.from_numpy(rng.uniform(-6.0, -0.05, maps).astype(
+            np.float32)).to(dev)
+        cases[name] = (img, sig, bound_ms(h, w, *maps[-2:], 3, True, n))
+
+    def run(name):
+        img, sig, _ = cases[name]
+        return lambda: epf_cuda.apply_loop_filters(img, sig, epf_iters=3,
+                                                   gab=True)
+
+    row = {"phase": "kernel_timing", "card": smi, "synthetic": True}
+    for name, (_, _, (b_ms, b_by, _, _)) in cases.items():
+        run(name)()                                    # warm-up
+        torch.cuda.synchronize()
+        row[name] = {"ms": cuda_ms(torch, run(name), 20), "bound_ms": b_ms,
+                     "bound_by": b_by}
+    emit(row)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel-only", action="store_true",
+                    help="build and check the kernel only, and time it")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA "
@@ -147,13 +214,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    import libjxl_tpu_torch
-    from libjxl_tpu_torch import device
-    from libjxl_tpu_torch.device import feed_to_torch
     from libjxl_tpu_torch.native import build as native_build
-    from libjxl_tpu_torch.ops import epf_cuda, filters, stages
-    from libjxl_tpu_torch.ops.decode_torch import xyb_to_pq16
-    from libjxl_tpu_torch.tpu import pipeline
+    from libjxl_tpu_torch.ops import epf_cuda, filters
 
     dev = torch.device("cuda")
 
@@ -180,55 +242,55 @@ def main() -> int:
         except BaseException as e:        # re-raised on the main thread
             results[name] = (e, time.monotonic() - t)
 
-    jobs = [threading.Thread(target=timed, args=(
-                "native", lambda: native_build.build(force=True))),
-            threading.Thread(target=timed, args=(
-                "epf", lambda: epf_cuda.build(force=True)))]
+    builds = {"epf": lambda: epf_cuda.build(force=True)}
+    if not args.kernel_only:
+        builds["native"] = lambda: native_build.build(force=True)
+    jobs = [threading.Thread(target=timed, args=(name, fn))
+            for name, fn in builds.items()]
     for j in jobs:
         j.start()
     for j in jobs:
         j.join()
-    for name in ("native", "epf"):
+    for name in builds:
         if isinstance(results[name][0], BaseException):
             raise results[name][0]
-    if results["native"][0] is None:
+    if not args.kernel_only and results["native"][0] is None:
         raise RuntimeError("native host library did not build")
-    ptxas = [ln.strip() for ln in results["epf"][0].splitlines()
-             if "registers" in ln or "spill" in ln or "smem" in ln]
-    emit({"phase": "build", "native_s": round(results["native"][1], 2),
-          "nvcc_s": round(results["epf"][1], 2), "ptxas": ptxas})
+    occupancy = {f"gab{int(g)}_iters{i}": epf_cuda.occupancy(i, g)
+                 for i, g in STAGES}
+    emit({"phase": "build",
+          "seconds": {k: round(v[1], 2) for k, v in results.items()},
+          "ptxas": ptxas_summary(results["epf"][0]),
+          "occupancy": occupancy})
 
     # ---- 2. kernel vs plain version on the card ----
     _phase[0] = "kernel_vs_plain"
     rng = np.random.default_rng(20260417)
     max_err = 0.0
-    for h, w in ((96, 200), (61, 117), (2160, 3840)):
+    for h, w in ((96, 200), (61, 117), (2160, 3840)) + EDGE_SHAPES:
         img = torch.from_numpy(
             rng.normal(0, 0.3, (3, h, w)).astype(np.float32)).to(dev)
         sig = torch.from_numpy(rng.uniform(
             -6.0, -0.05, ((h + 7) // 8, (w + 7) // 8)).astype(
                 np.float32)).to(dev)
-        for it in (0, 1, 2, 3):
-            for gab in (True, False):
-                if not (it or gab):
-                    continue
-                got = epf_cuda.apply_loop_filters(img, sig, epf_iters=it,
-                                                  gab=gab)
-                ref = filters.apply_loop_filters(img, sig, epf_iters=it,
-                                                 gab=gab)
-                torch.cuda.synchronize()
-                err = (got - ref).abs().max().item()
-                max_err = max(max_err, err)
-                emit({"phase": "kernel_vs_plain", "shape": [3, h, w],
-                      "epf_iters": it, "gab": gab, "max_abs_err": err})
-                if not err <= KERNEL_TOL:
-                    raise AssertionError(
-                        f"EPF kernel differs from its plain version by "
-                        f"{err} > {KERNEL_TOL} at {(h, w, it, gab)}")
+        for it, gab in STAGES:
+            got = epf_cuda.apply_loop_filters(img, sig, epf_iters=it,
+                                              gab=gab)
+            ref = filters.apply_loop_filters(img, sig, epf_iters=it,
+                                             gab=gab)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            max_err = max(max_err, err)
+            emit({"phase": "kernel_vs_plain", "shape": [3, h, w],
+                  "epf_iters": it, "gab": gab, "max_abs_err": err})
+            if not err <= KERNEL_TOL:
+                raise AssertionError(
+                    f"EPF kernel differs from its plain version by "
+                    f"{err} > {KERNEL_TOL} at {(h, w, it, gab)}")
         del img, sig, got, ref
     # Batches: one launch for N frames, each frame held against the plain
     # version run alone, with one block map per frame and with one shared.
-    for n, (h, w) in ((3, (1080, 1920)), (2, (61, 117))):
+    for n, (h, w) in ((3, (1080, 1920)), (2, (61, 117)), (2, (5, 3))):
         img = torch.from_numpy(rng.normal(0, 0.3, (n, 3, h, w))
                                .astype(np.float32)).to(dev)
         sig = torch.from_numpy(rng.uniform(
@@ -255,6 +317,7 @@ def main() -> int:
                     f"by {err} > {KERNEL_TOL} at {(n, h, w, shared)}")
         del img, sig, got
     # Custom loop-filter weights from a frame header.
+    from libjxl_tpu_torch.tpu import pipeline
     lf_custom = pipeline.loop_filter_params(custom_loop_filter())
     img = torch.from_numpy(rng.normal(0, 0.3, (3, 257, 389))
                            .astype(np.float32)).to(dev)
@@ -271,6 +334,18 @@ def main() -> int:
                              f"from its plain version by {err}")
     del img, sig
     torch.cuda.empty_cache()
+
+    if args.kernel_only:
+        kernel_only_timing(torch, np, epf_cuda, dev, rng, smi)
+        emit({"phase": "kernel_only_done", "card": smi,
+              "max_abs_err": max_err, "wall_s": time.monotonic() - t0})
+        return 0
+
+    import libjxl_tpu_torch
+    from libjxl_tpu_torch import device
+    from libjxl_tpu_torch.device import feed_to_torch
+    from libjxl_tpu_torch.ops import stages
+    from libjxl_tpu_torch.ops.decode_torch import xyb_to_pq16
 
     # ---- 3. main path: bitstream -> PQ16 on the card ----
     _phase[0] = "main_path"

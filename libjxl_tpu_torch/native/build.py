@@ -4,9 +4,10 @@
 CUDA kernels in ``csrc/`` go through the same ``build_locked`` with an
 nvcc command (ops/epf_cuda.py). Each library is written to a temporary
 name and moved into place with ``os.replace`` while holding an exclusive
-lock on ``_build/.lock``, so processes that trigger the first build at
-once (pytest-xdist workers) neither race on the output nor load a
-half-written file.
+lock of its own (``_build/<library>.lock``), so processes that trigger
+the first build at once (pytest-xdist workers) neither race on the
+output nor load a half-written file, and different libraries build in
+parallel.
 
     python -m libjxl_tpu_torch.native.build
 
@@ -54,7 +55,7 @@ def build_locked(out: str, src: str, cmd: list, force: bool = False) -> str:
     if not force and _fresh(out, src):
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+    with open(out + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not force and _fresh(out, src):
             return ""

@@ -65,8 +65,25 @@ def _load():
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p]
+        for fn in (lib.jxl_epf_occupancy, lib.jxl_epf_shared_bytes):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_int, ctypes.c_int]
         _lib = lib
     return _lib
+
+
+def occupancy(epf_iters: int = 3, gab: bool = True) -> dict:
+    """Resident blocks per SM and dynamic shared memory per block of the
+    kernel instance that these stages launch, as the CUDA runtime
+    reports them for the current device."""
+    lib = _load()
+    blocks = lib.jxl_epf_occupancy(int(bool(gab)), int(epf_iters))
+    if blocks < 0:
+        raise RuntimeError(f"EPF occupancy query failed: CUDA error "
+                           f"{-blocks}")
+    return {"blocks_per_sm": blocks,
+            "shared_bytes": lib.jxl_epf_shared_bytes(int(bool(gab)),
+                                                     int(epf_iters))}
 
 
 def kernel_constants(gab_weights, epf_pass0_sigma_scale,

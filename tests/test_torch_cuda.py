@@ -23,6 +23,9 @@ TOL = 2e-6          # kernel vs plain: float rounding only
 XYB_TOL = 1e-4      # card vs CPU decode: products summed in other orders
 STAGES = [(it, gab) for it in (0, 1, 2, 3) for gab in (True, False)
           if it or gab]
+# Frames narrower or shorter than one tile, or than the halo: the
+# kernel's mirrored tables, sigma plane and field boxes meet both edges.
+EDGE_SHAPES = [(1, 1), (5, 3), (7, 300), (300, 7), (33, 9)]
 CORPUS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "bench_corpus")
 POST_CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -46,7 +49,8 @@ def _case(seed, h, w, device):
     return torch.from_numpy(img).to(device), torch.from_numpy(sig).to(device)
 
 
-@pytest.mark.parametrize("shape", [(96, 200), (61, 117), (2160, 3840)])
+@pytest.mark.parametrize("shape", [(96, 200), (61, 117), (2160, 3840)]
+                         + EDGE_SHAPES)
 @pytest.mark.parametrize("epf_iters,gab", STAGES)
 def test_kernel_matches_plain(epf_iters, gab, shape, cuda_device):
     x, s = _case(11, *shape, cuda_device)
@@ -57,6 +61,20 @@ def test_kernel_matches_plain(epf_iters, gab, shape, cuda_device):
     torch.cuda.synchronize()
     assert got.shape == x.shape and got.device == x.device
     assert (got - ref).abs().max().item() <= TOL
+
+
+def test_kernel_occupancy(cuda_device):
+    """Each of the seven instances launches with its shared memory; the
+    main path's (gaborish + three passes: two image buffers, six fields,
+    the sigma plane) keeps two blocks on an SM. No stage, no kernel."""
+    for it, gab in STAGES:
+        occ = epf_cuda.occupancy(it, gab)
+        assert occ["blocks_per_sm"] >= 1
+        assert occ["shared_bytes"] <= 227 * 1024
+    occ = epf_cuda.occupancy(3, True)
+    assert occ["shared_bytes"] == 101968 and occ["blocks_per_sm"] == 2
+    with pytest.raises(RuntimeError):
+        epf_cuda.occupancy(0, False)
 
 
 def test_kernel_rejects_bad_input(cuda_device):
@@ -104,7 +122,8 @@ def test_pipeline_on_card_matches_single_decodes(cuda_device):
 
 
 @pytest.mark.parametrize("n,shape,per_frame_map", [
-    (3, (96, 200), True), (2, (61, 117), True), (3, (61, 117), False)])
+    (3, (96, 200), True), (2, (61, 117), True), (3, (61, 117), False),
+    (2, (5, 3), True)])
 @pytest.mark.parametrize("epf_iters,gab", [(3, True), (2, False),
                                            (1, True)])
 def test_batched_kernel_matches_plain(n, shape, per_frame_map, epf_iters,

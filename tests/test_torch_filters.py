@@ -26,6 +26,9 @@ _PALLAS = jax.jit(apply_loop_filters_pallas,
 STAGES = [(it, gab) for it in (0, 1, 2, 3) for gab in (True, False)
           if it or gab]
 SHAPES = [(96, 200), (61, 117)]
+# Frames narrower or shorter than a 32-pixel tile or than the 7-pixel
+# halo (mirroring wraps more than once), as the CUDA kernel meets them.
+EDGE_SHAPES = [(1, 1), (5, 3), (7, 300), (300, 7), (33, 9)]
 
 
 def _case(seed, h, w):
@@ -64,6 +67,22 @@ def test_matches_pallas_interpret(epf_iters, gab, shape):
         jax.numpy.asarray(img), jax.numpy.asarray(sig),
         epf_iters=epf_iters, gab=gab, interpret=True))
     got = _port(img, sig, epf_iters=epf_iters, gab=gab)
+    assert np.abs(got - ref).max() <= TOL
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+@pytest.mark.parametrize("epf_iters,gab", STAGES)
+def test_edge_shapes_match_jnp_filters(epf_iters, gab, shape):
+    rng = np.random.default_rng(21)
+    h, w = shape
+    img = rng.normal(0, 0.3, (3, h, w)).astype(np.float32)
+    sig = rng.uniform(-6.0, -0.05,
+                      ((h + 7) // 8, (w + 7) // 8)).astype(np.float32)
+    ref = np.asarray(_JAX_FILTERS(
+        jax.numpy.asarray(img), jax.numpy.asarray(sig),
+        epf_iters=epf_iters, gab=gab))
+    got = _port(img, sig, epf_iters=epf_iters, gab=gab)
+    assert got.shape == ref.shape == (3, h, w)
     assert np.abs(got - ref).max() <= TOL
 
 
