@@ -9,9 +9,13 @@ times the host parse, the device decode, sustained throughput and the
 kernel. Then the post-stage path: the committed streams of
 tests/torch_corpus (a 1080p frame upsampled 2x to 3840x2160 with photon
 noise, and a 1080p frame with spline strokes) decoded on the card and
-timed stage by stage; and the batched path: ``DecodePipeline`` at
+timed stage by stage; the batched path: ``DecodePipeline`` at
 ``batch=1`` and ``batch=3`` on the 1080p stream, as bench.py's 1080p
-phases run it.
+phases run it; and the public decode API (``decode``, ``decode_all``)
+on the card against its CPU route: a 4K HDR stream to 16-bit PQ, 1080p
+screen content with patches and a reference frame, a 720p RGBA
+animation blended on the card and a lossless 1024x768 image with two
+spot colours, each timed as host parse, device and host tail.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-only
@@ -46,6 +50,9 @@ FILE_1080P = "1080p_hdr_pq_d1_e5_prog_epf3.jxl"
 FILES_4K = [f"4k_hdr_pq_d1_e5_prog_epf3_{i}.jxl" for i in range(3)]
 FILE_UP2 = "4k_hdr_pq_d2_e5_up2_iso3200_epf3.jxl"
 FILE_SPLINES = "1080p_splines_d1.jxl"
+FILE_PATCHES = "1080p_screen_patches_d1_e7.jxl"
+FILE_ANIM = "720p_anim4_rgba_blend_d1.jxl"
+FILE_SPOT = "1024x768_spot2_lossless.jxl"
 E2E_FRAMES, BATCH, BATCHED_FRAMES = 8, 3, 9   # as bench.py:317-349
 BATCH_TOL = 1e-4        # a batched frame vs its single decode (XYB)
 BUDGET_S = 900          # hard limit, builds included
@@ -167,6 +174,177 @@ def custom_loop_filter():
     out = LoopFilter()
     bundle_read(BitReader(w.get_bytes()), out)
     return out
+
+
+class ApiSplit:
+    """Splits one ``decode``/``decode_all`` call of the port into host
+    parse, device and host tail by wrapping the frame decode the API
+    calls and the device decode the frame decode calls:
+    - device: ``decode_frame_device2`` to its output complete on the card
+      (host clock; staging, compute and post stages);
+    - parse: the frame decodes less their device calls (entropy decode,
+      the host stages of the frame, the XYB copy back to the host);
+    - tail: the rest of the call (colour conversion, spot colours,
+      blending, output pixels)."""
+
+    def __init__(self, torch):
+        from libjxl_tpu_torch.api import simple as api
+        from libjxl_tpu_torch.tpu import pipeline
+        self.torch, self.api, self.pipeline = torch, api, pipeline
+        self.orig = api.decode_frame, pipeline.decode_frame_device2
+
+    def run(self, fn, *args, **kw):
+        torch = self.torch
+        t = {"frames": 0.0, "device": 0.0}
+        frame_fn, dev_fn = self.orig
+
+        def frame(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return frame_fn(*a, **k)
+            finally:
+                t["frames"] += time.perf_counter() - t0
+
+        def device(*a, **k):
+            t0 = time.perf_counter()
+            out = dev_fn(*a, **k)
+            if out.device.type == "cuda":
+                torch.cuda.synchronize()
+            t["device"] += time.perf_counter() - t0
+            return out
+
+        self.api.decode_frame = frame
+        self.pipeline.decode_frame_device2 = device
+        try:
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        finally:
+            self.api.decode_frame, self.pipeline.decode_frame_device2 = \
+                self.orig
+        return res, {"total_ms": total * 1e3,
+                     "host_parse_ms": (t["frames"] - t["device"]) * 1e3,
+                     "device_ms": t["device"] * 1e3,
+                     "host_tail_ms": (total - t["frames"]) * 1e3}
+
+
+def pq16_pixels(np, xyb):
+    """The port API's output tail for a PQ stream, on the host: XYB ->
+    linear (nits/255) -> PQ -> 16-bit codes, (H, W, 3)."""
+    from libjxl_tpu_torch.color.transfer_functions import (
+        pq_encoded_from_display,
+    )
+    from libjxl_tpu_torch.color.xyb import xyb_to_linear_rgb
+    pq = pq_encoded_from_display(xyb_to_linear_rgb(xyb)
+                                 * (255.0 / 10000.0)).astype(np.float32)
+    return np.clip(np.round(pq * 65535), 0, 65535).astype(
+        np.uint16).transpose(1, 2, 0)
+
+
+def frame_xyb(data: bytes, device):
+    """The XYB of the last frame of a single-frame stream from the port's
+    frame decode on ``device``."""
+    from libjxl_tpu_torch.bitstream.bit_io import BitReader
+    from libjxl_tpu_torch.frame.decode_frame import decode_frame
+    from libjxl_tpu_torch.frame.headers import read_codestream_headers
+    r = BitReader(data)
+    return decode_frame(r, read_codestream_headers(r), device=device).xyb
+
+
+def api_path(torch, np, epf_cuda, smi):
+    """The public decode API at full size, on the card and on its CPU
+    route. Returns the EPF launches of the card runs (counted from 0
+    just before them)."""
+    import libjxl_tpu_torch
+    split = ApiSplit(torch)
+
+    def diff(a, b) -> int:
+        if a.shape != b.shape:
+            raise AssertionError(f"shapes {a.shape} and {b.shape}")
+        return int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+
+    streams = [("hdr", FILES_4K[0], read(FILES_4K[0]), (2160, 3840, 3)),
+               ("patches", FILE_PATCHES, read(FILE_PATCHES, POST_CORPUS),
+                (1080, 1920, 3)),
+               ("spot", FILE_SPOT, read(FILE_SPOT, POST_CORPUS),
+                (768, 1024, 3)),
+               ("animation", FILE_ANIM, read(FILE_ANIM, POST_CORPUS),
+                (720, 1280, 4))]
+    # Warm-up on the card (the constant banks, cuBLAS), not counted.
+    libjxl_tpu_torch.decode(streams[1][2])
+    epf_cuda.launches = 0
+    card, launches, timing = {}, {}, {}
+    for key, _, data, _ in streams:
+        before = epf_cuda.launches
+        if key == "animation":
+            card[key], timing[key] = split.run(libjxl_tpu_torch.decode_all,
+                                               data)
+        else:
+            card[key], timing[key] = split.run(libjxl_tpu_torch.decode,
+                                               data)
+        launches[key] = epf_cuda.launches - before
+    total_launches = epf_cuda.launches
+    if launches["hdr"] != 1 or launches["patches"] != 1:
+        raise AssertionError(f"EPF launches per stream {launches}: the "
+                             "VarDCT frames with loop filters take one")
+    rows = []
+    for key, name, data, shape in streams:
+        row = {"stream": key, "file": name, "epf_launches": launches[key],
+               "card_split_ms": timing[key]}
+        if key == "animation":
+            cpu, row["cpu_split_ms"] = split.run(
+                libjxl_tpu_torch.decode_all, data, device="cpu")
+            frames, _ = card[key]
+            cpu_frames, _ = cpu
+            if len(frames) != 4 or len(cpu_frames) != 4:
+                raise AssertionError(f"{name}: {len(frames)} frames")
+            row["frames"] = len(frames)
+            row["max_lsb_diff"] = max(diff(f.pixels, c.pixels)
+                                      for f, c in zip(frames, cpu_frames))
+            row["shape"] = list(frames[0].pixels.shape)
+            ok = row["max_lsb_diff"] <= 1 and all(
+                f.pixels.shape == shape for f in frames)
+        else:
+            res = card[key]
+            cpu, row["cpu_split_ms"] = split.run(libjxl_tpu_torch.decode,
+                                                 data, device="cpu")
+            px = res.pixels
+            row["shape"] = list(px.shape)
+            row["dtype"] = str(px.dtype)
+            ok = px.shape == shape
+            if key == "hdr":
+                # XYB of the card's frame against the CPU route's; the
+                # PQ16 codes on identical XYB; the raw code difference
+                # of the two routes is reported, not gated (caveat 5).
+                xyb_gpu = frame_xyb(data, "cuda")
+                xyb_cpu = frame_xyb(data, "cpu")
+                t0 = time.perf_counter()
+                tail = pq16_pixels(np, xyb_gpu)
+                row["pq16_tail_host_ms"] = (time.perf_counter() - t0) * 1e3
+                row["finite"] = bool(np.isfinite(xyb_gpu).all())
+                row["xyb_max_abs_diff"] = float(np.abs(
+                    xyb_gpu - xyb_cpu).max())
+                row["pq16_tail_max_code_diff"] = diff(px, tail)
+                raw = np.abs(px.astype(np.int64)
+                             - cpu.pixels.astype(np.int64))
+                row["pq16_vs_cpu_max_code_diff"] = int(raw.max())
+                row["pq16_vs_cpu_share_over_1_code"] = float(
+                    (raw > 1).mean())
+                ok = ok and px.dtype == np.uint16 and row["finite"] \
+                    and row["xyb_max_abs_diff"] <= XYB_TOL \
+                    and row["pq16_tail_max_code_diff"] <= 1
+            else:
+                row["max_lsb_diff"] = diff(px, cpu.pixels)
+                ok = ok and px.dtype == np.uint8 \
+                    and row["max_lsb_diff"] <= 1
+        rows.append(row)
+        if not ok:
+            raise AssertionError(f"{name}: card vs CPU: {row}")
+    emit({"phase": "api_path", "card": smi, "epf_launches": total_launches,
+          "streams": rows})
+    return total_launches
 
 
 def kernel_only_timing(torch, np, epf_cuda, dev, rng, smi):
@@ -639,7 +817,12 @@ def main(argv=None) -> int:
           "epf_max_abs_err_batch": b_err,
           "epf_batch_shape": [BATCH, 3, 1080, 1920]})
 
-    # ---- 7. kernels (the line before the last) ----
+    # ---- 7. public decode API: decode / decode_all on the card ----
+    _phase[0] = "api_path"
+    torch.cuda.empty_cache()
+    api_launches = api_path(torch, np, epf_cuda, smi)
+
+    # ---- 8. kernels (the line before the last) ----
     _phase[0] = "kernels"
     emit({"phase": "done", "wall_s": time.monotonic() - t0})
     emit({"kernels": [{
@@ -648,7 +831,7 @@ def main(argv=None) -> int:
         "source": "libjxl_tpu_torch/csrc/epf.cu",
         "replaces": "libjxl_tpu/ops/epf_pallas.py:233",
         "launches": (main_launches + post_launches + e2e_launches
-                     + batched_launches),
+                     + batched_launches + api_launches),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -127,6 +127,16 @@ def feed_to_torch(feed: dict, device) -> dict:
     return t
 
 
+def patch_affine_to_torch(ka, device):
+    """The patch fold (K, A) of ``frame.patches.patch_affine``, two
+    (3, H, W) float32 planes, on ``device``: staged like the feed's
+    arrays (pinned, asynchronous), once per frame. None stays None."""
+    if ka is None:
+        return None
+    dev = resolve_device(device)
+    return tuple(_stage(a, dev, np.float32) for a in ka)
+
+
 def feeds_to_torch(feeds: list, device) -> dict:
     """N host feeds of one coefficient shape, all sparse and on the dense
     class-mask path, -> one dict of tensors on ``device`` with a leading

@@ -1,5 +1,5 @@
 """Render-pipeline post stages in plain PyTorch: learned upsampling,
-noise synthesis and spline strokes.
+noise synthesis, spline strokes, spot colours and frame blending.
 
 Port of libjxl_tpu/ops/stages_tpu.py (the reference's post stages are
 XLA, not Pallas kernels, so they stay plain PyTorch here):
@@ -15,9 +15,13 @@ XLA, not Pallas kernels, so they stay plain PyTorch here):
   host (``spline_stroke_params``), and every arc sample is drawn as a
   (2R+1)^2 erf splat scatter-added into the frame with ``index_add_``.
   On a card the adds land in no fixed order, so two runs may differ by
-  float rounding.
+  float rounding;
+- spot colours (stage_spot.cc) and frame blending (blending.cc
+  PerformBlending), as ``render_spot_tpu`` and ``blend_frame_tpu`` run
+  them: element-wise work on tensors of the caller's device.
 
-Every function takes a (3, H, W) float32 tensor and returns a new one.
+Every post stage takes a (3, H, W) float32 tensor and returns a new one;
+``blend_frame`` takes (H, W, 3) canvases, as the reference's does.
 Products run in full float32 (``libjxl_tpu_torch.device`` turns TF32
 off); none of these stages uses a convolution.
 """
@@ -232,3 +236,92 @@ def render_splines(xyb: torch.Tensor, cy, cx, sig, inten,
     flat.index_add_(1, lin.reshape(-1),
                     (col.t()[:, :, None] * contrib[None]).reshape(3, -1))
     return flat.reshape(3, h, w)
+
+
+# ---------------------------------------------------------------------------
+# Spot colours and frame blending (stage_spot.cc, stage_blending.cc /
+# blending.cc PerformBlending)
+
+
+def render_spot(color3: torch.Tensor, mixes: torch.Tensor,
+                spot_rgba: torch.Tensor) -> torch.Tensor:
+    """Spot-colour mix, one spot channel after the other:
+    p = mix * spot_rgb + (1 - mix) * p with mix = s * spot_alpha.
+    color3 (3, H, W); mixes (N, H, W) in [0, 1]; spot_rgba (N, 4); all
+    float32 on one device."""
+    for i in range(mixes.shape[0]):
+        mix = mixes[i] * spot_rgba[i, 3]
+        color3 = (mix[None] * spot_rgba[i, :3, None, None]
+                  + (1.0 - mix)[None] * color3)
+    return color3
+
+
+BLEND_MODES = (0, 1, 2, 3, 4)   # REPLACE, ADD, BLEND, ALPHA_WEIGHTED_ADD, MUL
+
+
+def blend_frame(canvas: torch.Tensor, canvas_alpha, src, src_alpha,
+                mode: int, x0: int, y0: int,
+                alpha_is_premultiplied: bool = False):
+    """Blend ``src`` (h, w, 3) with alpha ``src_alpha`` (h, w) or None
+    onto ``canvas`` (H, W, 3) with alpha ``canvas_alpha`` (H, W) or None,
+    at origin (x0, y0). Returns the new (canvas, canvas_alpha) on the
+    canvas's device, so an animation's canvas stays there between
+    frames; the inputs are not modified. ``src`` and ``src_alpha`` may
+    be numpy arrays or tensors. The blit rectangle is clipped on the
+    host; a frame entirely outside the canvas returns it unchanged."""
+    if int(mode) not in BLEND_MODES:
+        raise ValueError(f"unknown blend mode {mode}")
+    dev = canvas.device
+    h, w = src.shape[0], src.shape[1]
+    ch, cw = canvas.shape[0], canvas.shape[1]
+    sx0, sy0 = max(0, -x0), max(0, -y0)
+    dx0, dy0 = max(0, x0), max(0, y0)
+    bw = min(w - sx0, cw - dx0)
+    bh = min(h - sy0, ch - dy0)
+    if bw <= 0 or bh <= 0:
+        return canvas, canvas_alpha
+
+    def on_dev(a):
+        a = a[sy0:sy0 + bh, sx0:sx0 + bw]
+        if torch.is_tensor(a):
+            return a.to(dev, torch.float32)
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    s = on_dev(src)
+    has_sa = src_alpha is not None
+    has_da = canvas_alpha is not None
+    win = (slice(dy0, dy0 + bh), slice(dx0, dx0 + bw))
+    d = canvas[win]
+    da = canvas_alpha[win] if has_da else torch.ones(
+        (bh, bw), dtype=torch.float32, device=dev)
+    sa = on_dev(src_alpha) if has_sa else torch.ones(
+        (bh, bw), dtype=torch.float32, device=dev)
+    new_a = da
+    mode = int(mode)
+    if mode == 0:      # REPLACE
+        out = s
+        new_a = sa
+    elif mode == 1:    # ADD
+        out = d + s
+        new_a = torch.clamp(da + sa, 0.0, 1.0) if has_sa else da
+    elif mode == 4:    # MUL
+        out = d * s
+    elif mode == 2:    # BLEND
+        if alpha_is_premultiplied:
+            out = s + d * (1.0 - sa)[..., None]
+            new_a = sa + da * (1.0 - sa)
+        else:
+            new_a = sa + da * (1.0 - sa)
+            safe = torch.where(new_a == 0, 1.0, new_a)
+            out = (s * sa[..., None]
+                   + d * (da * (1.0 - sa))[..., None]) / safe[..., None]
+            out = torch.where((new_a == 0)[..., None], 0.0, out)
+    else:              # ALPHA_WEIGHTED_ADD
+        out = d + s * sa[..., None]
+        new_a = torch.clamp(da + sa, 0.0, 1.0) if has_sa else da
+    canvas = canvas.clone()
+    canvas[win] = out
+    if has_da:
+        canvas_alpha = canvas_alpha.clone()
+        canvas_alpha[win] = new_a
+    return canvas, canvas_alpha

@@ -32,7 +32,7 @@ def parse_to_feed(data: bytes) -> dict:
         data = unpack_container(data).codestream
     r = BitReader(data)
     meta = read_codestream_headers(r)
-    return decode_frame(r, meta).feed
+    return decode_frame(r, meta, device="feed").feed
 
 
 def decode_device(data: bytes, out: str = "pq16",

@@ -10,8 +10,8 @@ Port of libjxl_tpu/tpu/pipeline.py (``decode_xyb2``,
   3. 8x8-family IDCT as one masked matmul per used bank slot
   4. big/rect classes as dense aligned tiles (or gather/scatter)
   5. gaborish + EPF: the hand-written CUDA kernel (ops/epf_cuda.py)
-  6. post stages of one frame: upsampling, splines, noise
-     (ops/stages.py)
+  6. post stages of one frame: upsampling, the patch affine fold,
+     splines, noise (ops/stages.py)
   7. XYB -> PQ16 / sRGB8 (ops/decode_torch.py)
 A batch of N frames carries a leading axis through steps 1-5 and 7 in
 place of the reference's ``vmap``; the kernel filters it in one launch.
@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from libjxl_tpu_torch.device import (
-    feed_to_torch, feeds_to_torch, resolve_device,
+    feed_to_torch, feeds_to_torch, patch_affine_to_torch, resolve_device,
 )
 from libjxl_tpu_torch.ops import epf_cuda, stages
 from libjxl_tpu_torch.ops.decode_torch import (
@@ -298,7 +298,7 @@ def output_tail(xyb: torch.Tensor, out: str) -> torch.Tensor:
 # Post stages (dec_cache.cc order: EPF -> upsampling -> patches ->
 # splines -> noise)
 
-POST_STAGES = ("upsample", "noise", "splines", "final_hw")
+POST_STAGES = ("upsample", "patch_affine", "noise", "splines", "final_hw")
 
 _NOISE_DEV_CACHE: dict = {}
 
@@ -321,8 +321,7 @@ def device_noise_planes(h: int, w: int, gd: int, vfi: int,
 
 def check_post(post: dict | None) -> dict:
     """``post`` without empty entries; raises for a stage the port does
-    not render on the device (``patch_affine``, or one it does not
-    know)."""
+    not know."""
     post = {k: v for k, v in (post or {}).items() if v is not None}
     for stage in post:
         if stage not in POST_STAGES:
@@ -343,6 +342,15 @@ def upsample_stage(xyb: torch.Tensor, post: dict) -> torch.Tensor:
     final_h, final_w = post.get("final_hw", (h * up_n, w * up_n))
     k = torch.from_numpy(_kernels(up_n).astype(np.float32)).to(xyb.device)
     return stages.upsample_image(xyb, up_n, k)[:, :final_h, :final_w]
+
+
+def patch_stage(xyb: torch.Tensor, ka) -> torch.Tensor:
+    """The patch stack folded to one affine map, ``xyb * K + A``, after
+    upsampling (``ka``: (K, A) as ``patch_affine_to_torch`` stages
+    them, or None)."""
+    if ka is None:
+        return xyb
+    return xyb * ka[0] + ka[1]
 
 
 def splines_stage(xyb: torch.Tensor, post: dict) -> torch.Tensor:
@@ -370,18 +378,23 @@ def decode_frame_device2(feed: dict, image_h: int, image_w: int,
     """Host feed -> (3, H, W) tensor on ``device`` (default ``cuda``).
 
     out: "srgb8" (uint8), "pq16" (uint16 PQ-encoded BT.2100) or "xyb"
-    (float32 planes). ``post`` (the feed's ``"post"`` entry): the
-    upsampling factor ``upsample``, ``splines`` (stroke parameters),
-    ``noise`` (lut, ytox, ytob, group_dim, frame index) and the output
-    size ``final_hw``, run in the reference's order after the loop
-    filters; the output is then ``final_hw``. A stage the port does not
-    render (``patch_affine``) raises."""
+    (float32 planes). ``post`` (the feed's ``"post"`` entry, or the one
+    ``frame.decode_frame`` assembles on its device route): the
+    upsampling factor ``upsample``, ``patch_affine`` (the patch stack
+    folded to (K, A), two (3, H, W) float32 planes at the upsampled
+    size), ``splines`` (stroke parameters), ``noise`` (lut, ytox, ytob,
+    group_dim, frame index) and the output size ``final_hw``, run in the
+    reference's order after the loop filters; the output is then
+    ``final_hw``. An unknown stage raises."""
     post = check_post(post)
     if out not in OUTPUTS:
         raise ValueError(f"out must be one of {OUTPUTS}, not {out!r}")
-    t = feed_to_torch(feed, resolve_device(device))
+    dev = resolve_device(device)
+    t = feed_to_torch(feed, dev)
+    ka = patch_affine_to_torch(post.get("patch_affine"), dev)
     xyb = loop_filters(staged_xyb(t, image_h, image_w), t)
-    xyb = noise_stage(splines_stage(upsample_stage(xyb, post), post), post)
+    xyb = patch_stage(upsample_stage(xyb, post), ka)
+    xyb = noise_stage(splines_stage(xyb, post), post)
     return output_tail(xyb, out)
 
 

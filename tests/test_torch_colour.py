@@ -53,3 +53,19 @@ def test_adjust_quant_bias_matches_jax():
         torch.from_numpy(q.transpose(1, 0, 2, 3)).float(),
         torch.from_numpy(DEFAULT_QUANT_BIAS)).numpy()
     np.testing.assert_array_equal(got, ref.transpose(1, 0, 2, 3))
+
+
+def test_pq16_codes_ill_conditioned_in_dark_tones():
+    """Why card and CPU PQ16 codes are compared on identical XYB: the
+    reference's own tail moves dark-tone codes by more than one when its
+    XYB input moves by 2e-7, the size of the float32 differences between
+    two backends' sums (ROADMAP queue 3, caveat 5). On identical XYB the
+    port's tail stays within one code of it (test_pq16_matches_jax)."""
+    xyb = _xyb(0)
+    ref = np.asarray(decode_tpu.xyb_to_pq16(jax.numpy.asarray(xyb)))
+    moved = np.asarray(decode_tpu.xyb_to_pq16(
+        jax.numpy.asarray(xyb + np.float32(2e-7))))
+    assert np.abs(moved.astype(np.int64) - ref.astype(np.int64)).max() > 1
+    got = decode_torch.xyb_to_pq16(torch.from_numpy(xyb))
+    assert np.abs(got.to(torch.int32).numpy()
+                  - ref.astype(np.int64)).max() <= 1

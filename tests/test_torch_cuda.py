@@ -1,7 +1,8 @@
 """Tests that need an NVIDIA card: the hand-written EPF kernel against
 its plain PyTorch version (single frames, batches, custom loop-filter
 weights), and the decode on the card (single, batched, with post
-stages) against the plain CPU path. They import neither jax nor the JAX package, so they run on a
+stages, and the public ``decode``/``decode_all``) against the plain CPU
+path. They import neither jax nor the JAX package, so they run on a
 machine that has only the port:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -239,3 +240,102 @@ def test_batched_pipeline_on_card(cuda_device):
         assert o.device.type == "cuda" and tuple(o.shape) == (3, 1080, 1920)
         assert (o - ref).abs().max().item() <= 1e-5
     del scratch
+
+
+def _api_stream(name):
+    corpus = CORPUS if name.startswith("4k_hdr_pq_d1") else POST_CORPUS
+    with open(os.path.join(corpus, name), "rb") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("name,shape,launches", [
+    ("1080p_screen_patches_d1_e7.jxl", (1080, 1920, 3), 1),
+    ("1024x768_spot2_lossless.jxl", (768, 1024, 3), 0)])
+def test_api_decode_on_card_matches_cpu(name, shape, launches,
+                                        cuda_device):
+    """``decode`` on the card (patches with a reference frame, EPF on the
+    kernel; spot colours mixed on the card) within 1 LSB of its CPU
+    route."""
+    data = _api_stream(name)
+    before = epf_cuda.launches
+    got = libjxl_tpu_torch.decode(data)
+    assert epf_cuda.launches == before + launches
+    ref = libjxl_tpu_torch.decode(data, device="cpu")
+    assert got.pixels.shape == ref.pixels.shape == shape
+    assert got.pixels.dtype == np.uint8
+    assert np.abs(got.pixels.astype(np.int64)
+                  - ref.pixels.astype(np.int64)).max() <= 1
+
+
+def test_api_decode_hdr_on_card_matches_cpu(cuda_device):
+    """The 4K HDR stream through ``decode``: 16-bit PQ; the card frame's
+    XYB within XYB_TOL of the CPU route's, and the output equals the
+    host tail on that XYB within one code (caveat 5: raw codes of the
+    two routes may differ by more in dark tones)."""
+    from libjxl_tpu_torch.bitstream.bit_io import BitReader
+    from libjxl_tpu_torch.color.transfer_functions import (
+        pq_encoded_from_display,
+    )
+    from libjxl_tpu_torch.color.xyb import xyb_to_linear_rgb
+    from libjxl_tpu_torch.frame.decode_frame import decode_frame
+    from libjxl_tpu_torch.frame.headers import read_codestream_headers
+
+    data = _api_stream("4k_hdr_pq_d1_e5_prog_epf3_0.jxl")
+
+    def xyb(device):
+        r = BitReader(data)
+        return decode_frame(r, read_codestream_headers(r),
+                            device=device).xyb
+
+    got = libjxl_tpu_torch.decode(data)
+    assert got.pixels.dtype == np.uint16
+    assert got.pixels.shape == (2160, 3840, 3)
+    card = xyb("cuda")
+    assert np.abs(card - xyb("cpu")).max() <= XYB_TOL
+    pq = pq_encoded_from_display(xyb_to_linear_rgb(card)
+                                 * (255.0 / 10000.0)).astype(np.float32)
+    tail = np.clip(np.round(pq * 65535), 0, 65535).transpose(1, 2, 0)
+    assert np.abs(got.pixels.astype(np.int64) - tail).max() <= 1
+
+
+def test_api_decode_all_on_card_matches_cpu(cuda_device):
+    """The 720p RGBA animation: four frames blended on the card, each
+    within 1 LSB of the CPU route."""
+    data = _api_stream("720p_anim4_rgba_blend_d1.jxl")
+    got, meta = libjxl_tpu_torch.decode_all(data)
+    ref, _ = libjxl_tpu_torch.decode_all(data, device="cpu")
+    assert len(got) == len(ref) == 4
+    for g, r in zip(got, ref):
+        assert g.pixels.shape == (720, 1280, 4)
+        assert g.duration == r.duration
+        assert np.abs(g.pixels.astype(np.int64)
+                      - r.pixels.astype(np.int64)).max() <= 1
+
+
+def test_blend_and_spot_stages_on_card(cuda_device):
+    """The blend and spot stages on card tensors equal their CPU runs
+    within 1e-6, and the blended canvas stays on the card."""
+    from libjxl_tpu_torch.ops import stages
+    rng = np.random.default_rng(3)
+    canvas = torch.from_numpy(rng.uniform(0, 1, (40, 50, 3))
+                              .astype(np.float32))
+    ca = torch.from_numpy(rng.uniform(0, 1, (40, 50)).astype(np.float32))
+    src = rng.uniform(0, 1, (30, 20, 3)).astype(np.float32)
+    sa = rng.uniform(0, 1, (30, 20)).astype(np.float32)
+    for mode in range(5):
+        gc, ga = stages.blend_frame(canvas.to(cuda_device),
+                                    ca.to(cuda_device), src, sa, mode,
+                                    -3, 15)
+        rc, ra = stages.blend_frame(canvas, ca, src, sa, mode, -3, 15)
+        assert gc.device.type == "cuda"
+        assert (gc.cpu() - rc).abs().max().item() <= 1e-6
+        assert (ga.cpu() - ra).abs().max().item() <= 1e-6
+    color = torch.from_numpy(rng.uniform(0, 1, (3, 40, 50))
+                             .astype(np.float32))
+    mixes = torch.from_numpy(rng.uniform(0, 1, (2, 40, 50))
+                             .astype(np.float32))
+    rgba = torch.from_numpy(rng.uniform(0, 1, (2, 4)).astype(np.float32))
+    got = stages.render_spot(color.to(cuda_device), mixes.to(cuda_device),
+                             rgba.to(cuda_device))
+    ref = stages.render_spot(color, mixes, rgba)
+    assert (got.cpu() - ref).abs().max().item() <= 1e-6

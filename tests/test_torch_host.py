@@ -122,14 +122,15 @@ def _splines_upsampled():
 
 
 def _parse_every_frame(data):
-    """The port's frame decode on every frame of the stream in order (the
-    patch sheet is a frame of its own, ahead of the frame that uses it)."""
+    """The port's frame decode on its feed route on every frame of the
+    stream in order (the patch sheet is a frame of its own, ahead of the
+    frame that uses it)."""
     from libjxl_tpu_torch.bitstream.bit_io import BitReader
     from libjxl_tpu_torch.frame.decode_frame import decode_frame
     from libjxl_tpu_torch.frame.headers import read_codestream_headers
     r = BitReader(data)
     meta = read_codestream_headers(r)
-    while not decode_frame(r, meta).header.is_last:
+    while not decode_frame(r, meta, device="feed").header.is_last:
         pass
 
 
@@ -141,9 +142,10 @@ def _parse_every_frame(data):
     (_splines_upsampled, "splines together with upsampling"),
 ], ids=["patches", "extra_channels", "splines_upsampled"])
 def test_unported_stage_raises(make, stage):
-    """Frame features the device path does not render yet raise, naming
-    the feature (noise, upsampling and splines alone are decoded: see
-    tests/test_torch_stages.py)."""
+    """Frame features the feed cannot carry raise on the feed route,
+    naming the feature (noise, upsampling and splines alone ride in the
+    feed: see tests/test_torch_stages.py; the port's decode API renders
+    all three features: tests/test_torch_api.py)."""
     with pytest.raises(NotImplementedError, match=stage):
         _parse_every_frame(make())
 

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of libjxl_tpu_torch and
-decoding a frame on the CPU loads neither ``jax`` nor anything of
-``libjxl_tpu``, and no port source (or chip_smoke.py) imports them."""
+decoding a frame on the CPU (``decode_device``, ``decode``,
+``decode_all``) loads neither ``jax`` nor anything of ``libjxl_tpu``,
+and no port source (or chip_smoke.py) imports them."""
 
 import os
 import re
@@ -8,6 +9,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 from libjxl_tpu.api import simple
 
@@ -20,9 +22,13 @@ import libjxl_tpu_torch
 for m in pkgutil.walk_packages(libjxl_tpu_torch.__path__,
                                "libjxl_tpu_torch."):
     importlib.import_module(m.name)
-out = libjxl_tpu_torch.decode_device(sys.stdin.buffer.read(), out="pq16",
-                                     device="cpu")
+data = sys.stdin.buffer.read()
+out = libjxl_tpu_torch.decode_device(data, out="pq16", device="cpu")
 assert tuple(out.shape) == (3, 64, 80), out.shape
+res = libjxl_tpu_torch.decode(data, device="cpu")
+assert res.pixels.shape == (64, 80, 3), res.pixels.shape
+frames, _ = libjxl_tpu_torch.decode_all(data, device="cpu")
+assert len(frames) == 1 and frames[0].pixels.shape == (64, 80, 3)
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "libjxl_tpu" or n.startswith("libjxl_tpu."))
@@ -96,3 +102,31 @@ def test_every_imported_port_module_exists():
     missing = sorted(f"{src}: {m}" for m, src in named
                      if not _module_exists(m))
     assert not missing, missing
+
+
+# The modules the public decode API brought into the port.
+API_MODULES = ["libjxl_tpu_torch.api", "libjxl_tpu_torch.api.simple",
+               "libjxl_tpu_torch.parallel",
+               "libjxl_tpu_torch.parallel.runner",
+               "libjxl_tpu_torch.color.transfer_functions",
+               "libjxl_tpu_torch.color.ycbcr",
+               "libjxl_tpu_torch.color.cms",
+               "libjxl_tpu_torch.frame.patches"]
+
+
+@pytest.mark.parametrize("name", API_MODULES)
+def test_api_module_stands_alone(name):
+    """Each module exists in the port, imports neither ``jax`` nor
+    ``libjxl_tpu``, and names only port modules that exist."""
+    import ast
+    assert _module_exists(name), name
+    base = os.path.join(ROOT, *name.split("."))
+    path = base + ".py" if os.path.isfile(base + ".py") else \
+        os.path.join(base, "__init__.py")
+    with open(path) as f:
+        src = f.read()
+    assert not _IMPORT.search(src), name
+    for node in ast.walk(ast.parse(src, path)):
+        if isinstance(node, ast.ImportFrom) and node.module \
+                and node.module.split(".")[0] == "libjxl_tpu_torch":
+            assert _module_exists(node.module), (name, node.module)

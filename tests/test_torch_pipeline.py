@@ -192,10 +192,24 @@ def test_decode_batch_matches_single_decodes():
     {"spot": (np.zeros((1, 96, 96), np.float32),
               np.zeros((1, 4), np.float32))}])
 def test_post_stage_raises(post):
-    """Post stages the port does not render yet (the patch affine fold;
-    spot colours) raise, naming the stage; upsampling, noise and splines
-    are held against JAX in tests/test_torch_stages.py."""
+    """A post stage the port does not know (spot colours, which are no
+    post stage in the reference either: they mix after the colour
+    conversion) raises, naming the stage. The patch affine fold is a
+    post stage since the port's decode API: with the identity fold the
+    frame equals JAX's within XYB_TOL, and equals the port's own decode
+    without the stage bit for bit. Upsampling, noise and splines are
+    held against JAX in tests/test_torch_stages.py."""
     feed = parse_to_feed(_stream(96, 96, 5))
+    if "patch_affine" in post:
+        got = pipeline.decode_frame_device2(feed, 96, 96, out="xyb",
+                                            device="cpu", post=post)
+        ref = np.asarray(jax_pipeline.decode_frame_device2(
+            feed, 96, 96, out="xyb", post=post))
+        assert np.abs(got.numpy() - ref).max() <= XYB_TOL
+        plain = pipeline.decode_frame_device2(feed, 96, 96, out="xyb",
+                                              device="cpu")
+        assert torch.equal(got, plain)
+        return
     with pytest.raises(NotImplementedError, match=next(iter(post))):
         pipeline.decode_frame_device2(feed, 96, 96, out="pq16",
                                       device="cpu", post=post)

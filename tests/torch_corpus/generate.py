@@ -1,8 +1,9 @@
-"""Build the committed streams of the port's post-stage path with the JAX
-package's host encoder. A data tool, not part of the port (it imports
-``libjxl_tpu``); pytest does not collect it.
+"""Build the committed streams of the port's post-stage path and of its
+public decode API with the JAX package's host encoder. A data tool, not
+part of the port (it imports ``libjxl_tpu``); pytest does not collect
+it.
 
-    python tests/torch_corpus/generate.py [up2|splines]
+    python tests/torch_corpus/generate.py [up2|splines|patches|anim|spot]
 
 - ``4k_hdr_pq_d2_e5_up2_iso3200_epf3.jxl``: the content of
   ``tools/gen_bench_corpus.py:make_image(0)`` (3840x2160, 16-bit),
@@ -12,6 +13,18 @@ package's host encoder. A data tool, not part of the port (it imports
 - ``1080p_splines_d1.jxl``: a 1920x1080 8-bit frame with eight spline
   strokes, distance 1, loop filters on (the encoder's defaults), built
   with ``encode_vardct_frame`` as ``tests/test_device_stages.py`` does.
+- ``1080p_screen_patches_d1_e7.jxl``: 1920x1080 8-bit screen content
+  (lines of repeated glyphs on a flat light background, a gradient
+  panel and a photo-like panel) at distance 1, effort 7,
+  ``patches=True``: a
+  reference frame holding the glyph sheet, then the frame that places
+  the patches, with gaborish and EPF on.
+- ``720p_anim4_rgba_blend_d1.jxl``: 1280x720, four RGBA frames through
+  ``encode_animation(..., distance=1.0, blend=True)``: frames 1-3 blend
+  over the canvas with alpha.
+- ``1024x768_spot2_lossless.jxl``: a lossless 1024x768 8-bit image with
+  two spot-colour extra channels, as ``tests/test_device_stages.py``
+  builds its spot stream, at this size.
 
 The generation is deterministic (fixed seeds and encoder settings).
 """
@@ -29,6 +42,9 @@ sys.path.insert(0, ROOT)
 
 UP2 = "4k_hdr_pq_d2_e5_up2_iso3200_epf3.jxl"
 SPLINES = "1080p_splines_d1.jxl"
+PATCHES = "1080p_screen_patches_d1_e7.jxl"
+ANIM = "720p_anim4_rgba_blend_d1.jxl"
+SPOT = "1024x768_spot2_lossless.jxl"
 
 
 def _bench_image(i: int) -> np.ndarray:
@@ -103,10 +119,102 @@ def encode_splines() -> None:
     _write(SPLINES, wtr.get_bytes(), t0)
 
 
+def screen_image(h: int = 1080, w: int = 1920, seed: int = 21
+                 ) -> np.ndarray:
+    """Screen content: lines of text made of 40 random dark 12x10 glyphs
+    on a flat light background (glyph pitch 22 x 30 pixels, as
+    ``tests/test_device_stages.py`` lays out its glyphs), above a
+    gradient panel and a smooth photo-like panel 200 pixels tall, 8-bit
+    RGB. The background stays more than half the frame, as the encoder's
+    text-patch detector requires."""
+    rng = np.random.default_rng(seed)
+    img = np.full((h, w, 3), 240, np.uint8)
+    glyphs = [(rng.random((12, 10, 3)) * 120).astype(np.uint8)
+              for _ in range(40)]
+    for y in range(10, h - 240, 30):
+        for x in range(8, w - 10, 22):
+            if rng.random() < 0.15:
+                continue                        # a space between words
+            img[y:y + 12, x:x + 10] = glyphs[int(rng.integers(0, 40))]
+    ph, pw = 200, 900
+    y0 = h - ph - 20
+    yy, xx = np.mgrid[0:ph, 0:pw]
+    img[y0:y0 + ph, 40:40 + pw] = np.stack(
+        [40 + 180 * xx / pw, 60 + 120 * yy / ph, 200 - 150 * xx / pw],
+        axis=-1).astype(np.uint8)
+    photo = [0.5 + 0.3 * np.sin(xx / (23 + 5 * c) + c) * np.cos(yy / 31)
+             for c in range(3)]
+    img[y0:y0 + ph, w - 40 - pw:w - 40] = (
+        np.stack(photo, axis=-1) * 255).astype(np.uint8)
+    return img
+
+
+def encode_patches() -> None:
+    from libjxl_tpu.api.simple import encode
+    img = screen_image()
+    t0 = time.time()
+    _write(PATCHES, encode(img, distance=1.0, effort=7, patches=True), t0)
+
+
+def animation_frames(h: int = 720, w: int = 1280, n: int = 4) -> list:
+    """``n`` RGBA frames: smooth colour fields with a moving opaque
+    rectangle, a half-transparent band and a transparent rest."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    frames = []
+    for i in range(n):
+        fr = np.zeros((h, w, 4), np.uint8)
+        for c in range(3):
+            fr[:, :, c] = np.clip(
+                110 + 35 * i + 60 * np.sin(xx / (41 + 7 * c) + i)
+                * np.cos(yy / (37 + 3 * c)), 0, 255)
+        a = np.zeros((h, w), np.uint8)
+        y0, x0 = h // 8 + 60 * i, w // 8 + 120 * i
+        a[y0:y0 + h // 2, x0:x0 + w // 2] = 255
+        a[h // 3:h // 3 + h // 10, :] = 128
+        fr[:, :, 3] = a
+        frames.append(fr)
+    return frames
+
+
+def encode_anim() -> None:
+    from libjxl_tpu.api.simple import encode_animation
+    frames = animation_frames()
+    t0 = time.time()
+    _write(ANIM, encode_animation(frames, distance=1.0, blend=True), t0)
+
+
+def spot_image(h: int = 768, w: int = 1024):
+    """A smooth 8-bit RGB image and two spot-colour channels (an ink
+    rectangle and a soft disc), as the extra_channels list of
+    ``encode``."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([0.5 + 0.3 * np.sin(xx / (97 + 13 * c) + c)
+                    * np.cos(yy / 89) for c in range(3)], axis=-1)
+    img = (img * 255).astype(np.uint8)
+    spot = np.zeros((h, w), np.uint8)
+    spot[h // 4:h // 2, w // 3:2 * w // 3] = 200
+    r2 = (yy - 2 * h // 3) ** 2 + (xx - w // 4) ** 2
+    spot2 = np.clip(150 - r2 / 60.0, 0, 150).astype(np.uint8)
+    ecs = [{"type": "spot_color", "data": spot, "name": "ink",
+            "spot_color": (1.0, 0.1, 0.2, 0.8)},
+           {"type": "spot_color", "data": spot2, "name": "ink2",
+            "spot_color": (0.0, 0.9, 0.4, 0.5)}]
+    return img, ecs
+
+
+def encode_spot() -> None:
+    from libjxl_tpu.api.simple import encode
+    img, ecs = spot_image()
+    t0 = time.time()
+    _write(SPOT, encode(img, lossless=True, extra_channels=ecs), t0)
+
+
 def main() -> None:
-    which = sys.argv[1:] or ["up2", "splines"]
+    which = sys.argv[1:] or ["up2", "splines", "patches", "anim", "spot"]
     for name in which:
-        {"up2": encode_up2, "splines": encode_splines}[name]()
+        {"up2": encode_up2, "splines": encode_splines,
+         "patches": encode_patches, "anim": encode_anim,
+         "spot": encode_spot}[name]()
 
 
 if __name__ == "__main__":
