@@ -15,7 +15,13 @@ phases run it; and the public decode API (``decode``, ``decode_all``)
 on the card against its CPU route: a 4K HDR stream to 16-bit PQ, 1080p
 screen content with patches and a reference frame, a 720p RGBA
 animation blended on the card and a lossless 1024x768 image with two
-spot colours, each timed as host parse, device and host tail.
+spot colours, each timed as host parse, device and host tail. Last, the
+encoder (``encode``): bench.py's 1024x1024 test photo at d1 e5 and e7 on
+the card against its CPU route, timed and split into host before the
+stages, stage pre, stage B, the copy back and the host after; and the
+HDR corpus image 0 at 1920x1080 and at 3840x2160 encoded on the card,
+held against the committed streams and, stage by stage, against the
+same stages run on the CPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-only
@@ -59,6 +65,18 @@ BUDGET_S = 900          # hard limit, builds included
 KERNEL_TOL = 2e-6       # kernel vs plain version (reference's own bound)
 XYB_TOL = 1e-4          # card vs CPU decode (port vs JAX tests' bound)
 SUSTAINED_DECODES = 12
+ENC_SIZE, ENC_REPS = 1024, 3      # bench.py phase 4's image, timed encodes
+ENC_LSB_TOL = 2                   # card vs CPU route, decoded by the port
+QF_RTOL = 1e-5                    # quant field, card vs CPU stages
+# Share of the entries of each stage-B output that may differ between
+# the card and the CPU on the same inputs. None differed on the 4K HDR
+# frame. What can move one: the DCT products and the bit-cost and CfL
+# sums are summed in another order by the card's BLAS and reductions
+# than by the CPU's, so a value on a rounding, dead-zone or decision
+# boundary may fall the other way.
+ENC_STAGE_SHARE = {"strategies": 1e-4, "raw_quant": 1e-4, "qall": 1e-5,
+                   "qdc": 1e-5, "ytox_map": 1e-4, "ytob_map": 1e-4,
+                   "big_q": 1e-5}
 # Shapes where the kernel's mirrored tables, sigma plane and field boxes
 # meet the frame edge on both sides of one tile.
 EDGE_SHAPES = ((1, 1), (5, 3), (7, 300), (300, 7), (33, 9))
@@ -345,6 +363,298 @@ def api_path(torch, np, epf_cuda, smi):
     emit({"phase": "api_path", "card": smi, "epf_launches": total_launches,
           "streams": rows})
     return total_launches
+
+
+def test_photo(w: int, h: int, seed: int = 5):
+    """bench.py's ``_test_photo`` (8-bit): smooth bands and noise."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.clip(np.stack(
+        [0.5 + 0.3 * np.sin(x / 17 + c) * np.cos(y / 23)
+         + 0.1 * np.sin((x + y) / 41)
+         + rng.normal(0, 0.02, (h, w)) for c in range(3)],
+        -1), 0, 1)
+    return (img * 255).astype(np.uint8)
+
+
+def make_image(i: int):
+    """tools/gen_bench_corpus.py ``make_image``: the 3840x2160 16-bit
+    image that ``bench_corpus/4k_hdr_pq_d1_e5_prog_epf3_<i>.jxl`` was
+    encoded from."""
+    import numpy as np
+    w4k, h4k = 3840, 2160
+    rng = np.random.default_rng(7 + i)
+    xs = np.arange(w4k, dtype=np.float64)
+    ys = np.arange(h4k, dtype=np.float64)
+    chans = []
+    for c in range(3):
+        f1, f2 = 29 + 10 * i + 7 * c, 41 + 6 * i + 5 * c
+        sx = np.sin(xs / f1 + c)
+        cy = np.cos(ys / f2 + i)
+        s = float(f1 + f2)
+        sxy = (np.outer(np.cos(ys / s), np.sin(xs / s))
+               + np.outer(np.sin(ys / s), np.cos(xs / s)))
+        base = (0.28 + 0.22 * cy[:, None] * sx[None, :] + 0.10 * sxy
+                + rng.normal(0, 0.012, (h4k, w4k)))
+        chans.append(base)
+    img = np.clip(np.stack(chans, axis=-1), 0.0, 0.9)
+    return np.round(img * 65535.0).astype(np.uint16)
+
+
+class EncodeSplit:
+    """Splits one ``encode`` call of the port by wrapping the stages of
+    ``ops/encode.py`` that ``frame/encode_frame.py`` calls:
+    - ``stage_pre_ms``, ``quant_field_ms``, ``stage_b_ms``: device time of
+      each stage (CUDA events around the call; a stage called by another
+      counts in its caller);
+    - ``copy_back_ms``: device time of the synchronising copies back
+      (``to_host``: the quant field, then the outputs and planes);
+    - ``host_before_ms``: host clock from the call to the first stage
+      (colour conversion, padding, chromacity, patch search);
+    - ``device_section_ms``: host clock from the first stage to the last
+      copy back (the stages, the host's global scale between them);
+    - ``host_after_ms``: host clock from the last copy back to the end
+      (sub-8x8 pass, block lists, context clustering, entropy writing).
+    With ``capture``, keeps each stage's inputs and the copied outputs of
+    the last frame, to run the same stages on the CPU."""
+
+    def __init__(self, torch):
+        from libjxl_tpu_torch.ops import encode as ep
+        self.torch, self.ep = torch, ep
+        self.orig = (ep.encode_stage_pre, ep.initial_quant_field,
+                     ep.stage_b, ep.to_host)
+
+    def run(self, fn, *args, capture=None, **kw):
+        torch, ep = self.torch, self.ep
+        pre0, qf0, sb0, th0 = self.orig
+        events, marks, depth = [], {}, [0]
+
+        def timed(name, f, static=None):
+            def wrapped(*a, **k):
+                if depth[0]:
+                    return f(*a, **k)
+                marks.setdefault("first", time.perf_counter())
+                if capture is not None:
+                    capture[name] = (a, dict(k), static)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                depth[0] += 1
+                try:
+                    out = f(*a, **k)
+                finally:
+                    depth[0] -= 1
+                end.record()
+                events.append((name, start, end))
+                if name == "copy_back":
+                    marks["last"] = time.perf_counter()
+                    if capture is not None:
+                        capture.setdefault("copies", []).append(out)
+                return out
+            return wrapped
+
+        def stage_b(*a, **k):
+            return timed("stage_b", sb0(*a, **k), static=(a, k))
+
+        ep.encode_stage_pre = timed("stage_pre", pre0)
+        ep.initial_quant_field = timed("quant_field", qf0)
+        ep.stage_b = stage_b
+        ep.to_host = timed("copy_back", th0)
+        try:
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        finally:
+            (ep.encode_stage_pre, ep.initial_quant_field, ep.stage_b,
+             ep.to_host) = self.orig
+        split = {f"{n}_ms": 0.0 for n in ("stage_pre", "quant_field",
+                                          "stage_b", "copy_back")}
+        for name, start, end in events:
+            split[f"{name}_ms"] += start.elapsed_time(end)
+        split.update(total_ms=(t1 - t0) * 1e3,
+                     host_before_ms=(marks["first"] - t0) * 1e3,
+                     device_section_ms=(marks["last"] - marks["first"])
+                     * 1e3,
+                     host_after_ms=(t1 - marks["last"]) * 1e3)
+        return out, split
+
+
+def _share(np, a, b) -> dict:
+    """Entries of two integer arrays that differ: share and largest gap."""
+    d = np.abs(np.asarray(a, np.int64) - np.asarray(b, np.int64))
+    return {"share": float((d > 0).mean()) if d.size else 0.0,
+            "max": int(d.max(initial=0))}
+
+
+def encode_stages_vs_cpu(torch, np, cap) -> dict:
+    """The stages of one card encode run again on the CPU from the card's
+    inputs: stage pre from the same pre-gaborish planes, stage B from the
+    card's stage-B inputs. Returns the differences of every output."""
+    from libjxl_tpu_torch.ops import encode as ep
+    cpu = torch.device("cpu")
+
+    def to_cpu(v):
+        if torch.is_tensor(v):
+            return v.cpu()
+        if isinstance(v, dict):
+            return {k: to_cpu(x) for k, x in v.items()}
+        return v
+    out = {}
+    (pre_in, dist, gab), pre_kw, _ = cap["stage_pre"]
+    qf_cpu, planes_cpu = ep.encode_stage_pre(pre_in.cpu(), dist, gab,
+                                             **pre_kw)
+    b_args, b_kw, (sb_args, sb_kw) = cap["stage_b"]
+    planes_card = b_args[0].cpu()
+    qf_card = cap["copies"][0]["qf"]
+    out["qf_max_rel_diff"] = float(np.max(np.abs(
+        qf_card - qf_cpu.numpy()) / np.abs(qf_cpu.numpy())))
+    out["planes_max_abs_diff"] = float((planes_card - planes_cpu).abs()
+                                       .max())
+    res = ep.stage_b(*sb_args, **sb_kw)(*[to_cpu(a) for a in b_args],
+                                         **{k: to_cpu(v)
+                                            for k, v in b_kw.items()})
+    card = cap["copies"][-1]
+    for k in ("strategies", "raw_quant", "qall", "qdc", "ytox_map",
+              "ytob_map"):
+        out[k] = _share(np, card[k], res[k].numpy())
+    for k, v in card.get("big_q", {}).items():
+        out[f"big_q_{k}"] = _share(np, v, res["big_q"][k].numpy())
+    return out
+
+
+def encode_path(torch, np, epf_cuda, smi):
+    """The encoder at full size on the card: (a) bench.py phase 4's
+    1024x1024 photo at d1 e5 and e7 against the CPU route, timed; (b)
+    the HDR corpus image 0 (its 1080p crop and the 4K frame) against the
+    committed streams and against the same stages on the CPU. Returns
+    the EPF launches of the round-trip decodes on the card (counted from
+    0 just before)."""
+    import libjxl_tpu_torch
+    from libjxl_tpu_torch.ops import encode as ep
+    split = EncodeSplit(torch)
+
+    def lsb(a, b) -> int:
+        if a.shape != b.shape:
+            raise AssertionError(f"shapes {a.shape} and {b.shape}")
+        return int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+
+    img = test_photo(ENC_SIZE, ENC_SIZE, seed=5)
+    mpix = ENC_SIZE * ENC_SIZE / 1e6
+    rows, streams = [], []
+    for effort in (5, 7):
+        kw = dict(distance=1.0, effort=effort)
+        libjxl_tpu_torch.encode(img, **kw)                   # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        ep.calls.clear()
+        splits, card = [], None
+        for _ in range(ENC_REPS):
+            card, sp = split.run(libjxl_tpu_torch.encode, img, **kw)
+            splits.append(sp)
+        calls = dict(ep.calls)
+        if calls.get(("encode_stage_b", "cuda")) != ENC_REPS or any(
+                k[1] != "cuda" for k in calls):
+            raise AssertionError(f"e{effort}: stage calls {calls}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        t = time.perf_counter()
+        cpu = libjxl_tpu_torch.encode(img, device="cpu", **kw)
+        cpu_ms = (time.perf_counter() - t) * 1e3
+        mean_s = sum(sp["total_ms"] for sp in splits) / len(splits) / 1e3
+        rows.append({"effort": effort, "distance": 1.0,
+                     "shape": [ENC_SIZE, ENC_SIZE, 3],
+                     "device_encode_mpix_s": mpix / mean_s,
+                     "card_bytes": len(card), "cpu_bytes": len(cpu),
+                     "byte_identical": card == cpu,
+                     "card_split_ms": splits, "cpu_route_ms": cpu_ms,
+                     "peak_mib": peak, "stage_calls": {
+                         f"{k[0]}@{k[1]}": v for k, v in calls.items()}})
+        streams.append((effort, card, cpu))
+    # Round-trip decodes on the card (these launch the EPF kernel).
+    epf_cuda.launches = 0
+    for row, (effort, card, cpu) in zip(rows, streams):
+        pc = libjxl_tpu_torch.decode(card).pixels
+        pp = libjxl_tpu_torch.decode(cpu).pixels
+        row["max_lsb_diff"] = lsb(pc, pp)
+        row["mean_abs_err_vs_source"] = float(np.abs(
+            pc.astype(np.float64) - img).mean())
+    launches = epf_cuda.launches
+
+    # (b) HDR at full width, with the settings of the committed corpus:
+    # the 1920x1080 crop of image 0 against the committed 1080p stream,
+    # which the encoder writes today byte for byte, and the 4K frame
+    # against the committed 4K stream, which an earlier encoder wrote
+    # (before the sub-8x8 selection, the learned MA tree and the precise
+    # CfL fit): today's stream must be no larger and no worse than it.
+    hdr_kw = dict(distance=1.0, effort=5, hdr="pq", progressive=True,
+                  epf=3)
+    src = make_image(0)
+    hdr = {}
+    for key, name, img in (("hdr_1080p", FILE_1080P,
+                            np.ascontiguousarray(src[:1080, :1920])),
+                           ("hdr_4k", FILES_4K[0], src)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cap: dict = {}
+        ep.calls.clear()
+        card_s, sp = split.run(libjxl_tpu_torch.encode, img, capture=cap,
+                               **hdr_kw)
+        calls = dict(ep.calls)
+        if calls.get(("encode_stage_b", "cuda")) != 1 or any(
+                k[1] != "cuda" for k in calls):
+            raise AssertionError(f"{key}: stage calls {calls}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        ref = read(name)
+        t = time.perf_counter()
+        stages = encode_stages_vs_cpu(torch, np, cap)
+        stages_cpu_s = time.perf_counter() - t
+        del cap
+        torch.cuda.empty_cache()
+        before = epf_cuda.launches
+        dec_card = libjxl_tpu_torch.decode(card_s).pixels
+        dec_ref = libjxl_tpu_torch.decode(ref).pixels
+        launches += epf_cuda.launches - before
+        mae_card = float(np.abs(dec_card.astype(np.float64) - img).mean())
+        mae_ref = float(np.abs(dec_ref.astype(np.float64) - img).mean())
+        h, w = img.shape[:2]
+        hdr[key] = {"file": name, "card_bytes": len(card_s),
+                    "committed_bytes": len(ref),
+                    "byte_identical": card_s == ref,
+                    "size_ratio": len(card_s) / len(ref),
+                    "mae_card_pq16": mae_card, "mae_committed_pq16": mae_ref,
+                    "mae_ratio": mae_card / mae_ref, "card_split_ms": sp,
+                    "device_encode_mpix_s": h * w / 1e6
+                    / (sp["total_ms"] / 1e3),
+                    "peak_mib": peak, "stage_calls": {
+                        f"{k[0]}@{k[1]}": v for k, v in calls.items()},
+                    "stages_card_vs_cpu": stages,
+                    "stages_cpu_s": stages_cpu_s}
+        del dec_card, dec_ref
+    emit({"phase": "encode_path", "card": smi, "epf_launches": launches,
+          "photo_1024": rows, **hdr})
+    for row in rows:
+        if not (abs(row["card_bytes"] - row["cpu_bytes"])
+                <= max(8, 0.01 * row["cpu_bytes"])
+                and row["max_lsb_diff"] <= ENC_LSB_TOL):
+            raise AssertionError(f"e{row['effort']}: card vs CPU route "
+                                 f"{row['card_bytes']} vs "
+                                 f"{row['cpu_bytes']} B, "
+                                 f"{row['max_lsb_diff']} LSB")
+    r1, r4 = hdr["hdr_1080p"], hdr["hdr_4k"]
+    if not (abs(r1["size_ratio"] - 1) <= 0.01 and r1["mae_ratio"] <= 1.01
+            and r4["size_ratio"] <= 1.01 and r4["mae_ratio"] <= 1.01):
+        raise AssertionError(
+            f"HDR encodes against the committed streams: 1080p size ratio "
+            f"{r1['size_ratio']}, error ratio {r1['mae_ratio']}; 4K size "
+            f"ratio {r4['size_ratio']}, error ratio {r4['mae_ratio']}")
+    for key, row in hdr.items():
+        st = row["stages_card_vs_cpu"]
+        bad = {k: v for k, v in st.items() if isinstance(v, dict)
+               and v["share"] > ENC_STAGE_SHARE[
+                   "big_q" if k.startswith("big_q") else k]}
+        if st["qf_max_rel_diff"] > QF_RTOL or bad:
+            raise AssertionError(f"{key} stages, card vs CPU: {st}")
+    return launches
 
 
 def kernel_only_timing(torch, np, epf_cuda, dev, rng, smi):
@@ -822,7 +1132,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     api_launches = api_path(torch, np, epf_cuda, smi)
 
-    # ---- 8. kernels (the line before the last) ----
+    # ---- 8. encoder: encode() on the card ----
+    _phase[0] = "encode_path"
+    torch.cuda.empty_cache()
+    enc_launches = encode_path(torch, np, epf_cuda, smi)
+
+    # ---- 9. kernels (the line before the last) ----
     _phase[0] = "kernels"
     emit({"phase": "done", "wall_s": time.monotonic() - t0})
     emit({"kernels": [{
@@ -831,7 +1146,8 @@ def main(argv=None) -> int:
         "source": "libjxl_tpu_torch/csrc/epf.cu",
         "replaces": "libjxl_tpu/ops/epf_pallas.py:233",
         "launches": (main_launches + post_launches + e2e_launches
-                     + batched_launches + api_launches),
+                     + batched_launches + api_launches
+                     + enc_launches),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

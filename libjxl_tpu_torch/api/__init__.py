@@ -1,7 +1,8 @@
-"""Public decode API of the port (the decode half of libjxl_tpu.api)."""
+"""Public API of the port (libjxl_tpu.api without the animation and
+streaming encoders)."""
 
 from libjxl_tpu_torch.api.simple import (  # noqa: F401
-    DecodeResult, FrameResult, decode, decode_all,
+    DecodeResult, FrameResult, decode, decode_all, encode,
 )
 
-__all__ = ["decode", "decode_all", "DecodeResult", "FrameResult"]
+__all__ = ["encode", "decode", "decode_all", "DecodeResult", "FrameResult"]

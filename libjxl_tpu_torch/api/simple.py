@@ -1,20 +1,30 @@
-"""One-shot decode API of the port: ``decode`` and ``decode_all``.
+"""One-shot API of the port: ``encode``, ``decode`` and ``decode_all``.
 
+encode(): (H, W, 3) or (H, W) arrays -> .jxl codestream bytes.
 decode(): codestream bytes -> pixels + metadata.
 decode_all(): every displayed frame of an animation, blended.
 
-Copy of the decode half of libjxl_tpu/api/simple.py (``DecodeResult``,
-``FrameResult``, ``decode``, ``decode_all`` and their helpers) on the
-reference's device route, with ``device`` a torch device: VarDCT frames
-decode there through ``tpu.pipeline.decode_frame_device2`` (the loop
-filters on the CUDA kernel on a card), spot colours mix there and the
-animation canvas blends and stays there; the XYB comes back to the host,
-which converts it to output pixels, as the reference does. There is no
-host-only mode: the JAX package's host decoder is the oracle the tests
-hold the port against.
+Copy of libjxl_tpu/api/simple.py without ``encode_animation`` and
+``encode_streaming``, on the reference's device routes with ``device`` a
+torch device (default ``cuda``, raising without a card):
+- ``encode`` (with ``_butteraugli_qf_iteration`` and
+  ``_encode_modular_lossy``) runs the VarDCT frames that the
+  reference's ``encode(img, device=True)`` sends to its device route
+  through the port's stages (``frame/encode_frame.py``,
+  ``ops/encode.py``) on ``device``; the DC frame, the preview, the patch
+  and dot sheets stay on the host, as in the reference. The quant-field
+  iteration of effort 8 and above decodes its trial streams on the
+  host, as the reference's does;
+- ``decode`` decodes VarDCT frames through
+  ``tpu.pipeline.decode_frame_device2`` (the loop filters on the CUDA
+  kernel on a card), spot colours mix there and the animation canvas
+  blends and stays there; the XYB comes back to the host, which converts
+  it to output pixels, as the reference does. There is no host-only
+  mode: the JAX package's host decoder is the oracle the tests hold the
+  port against.
 
-Reference analogue: lib/extras/dec/jxl.cc DecodeImageJXL driving the C
-API.
+Reference analogue: lib/extras/enc/jxl.cc EncodeImageJXL /
+lib/extras/dec/jxl.cc DecodeImageJXL driving the C API.
 """
 
 from __future__ import annotations
@@ -24,13 +34,20 @@ import dataclasses
 import numpy as np
 import torch
 
-from libjxl_tpu_torch.bitstream.bit_io import BitReader
-from libjxl_tpu_torch.color.xyb import linear_to_srgb, xyb_to_linear_rgb
-from libjxl_tpu_torch.container.boxes import is_container, unpack_container
+from libjxl_tpu_torch.bitstream.bit_io import BitReader, BitWriter
+from libjxl_tpu_torch.color.color_encoding import ColorEncoding
+from libjxl_tpu_torch.color.xyb import (
+    linear_rgb_to_xyb, linear_to_srgb, srgb_to_linear, xyb_to_linear_rgb,
+)
+from libjxl_tpu_torch.container.boxes import is_container, pack_container, \
+    unpack_container
 from libjxl_tpu_torch.device import resolve_device
 from libjxl_tpu_torch.frame.decode_frame import decode_frame
+from libjxl_tpu_torch.frame.encode_frame import (
+    encode_modular_frame, encode_vardct_frame,
+)
 from libjxl_tpu_torch.frame.headers import (
-    CodecMetadata, read_codestream_headers,
+    BitDepth, CodecMetadata, read_codestream_headers, write_codestream_headers,
 )
 
 
@@ -94,6 +111,462 @@ class DecodeResult:
 class FrameResult:
     pixels: np.ndarray     # (H, W, C) uint8/uint16
     duration: int          # animation ticks (0 for still)
+
+
+def encode(image: np.ndarray, *, distance: float = 1.0,
+           lossless: bool = False, container: bool = False,
+           progressive: bool = False, noise=None,
+           resampling: int = 1, effort: int = 7,
+           dots: bool = False, patches: bool = True,
+           preview: bool = False,
+           dc_frame: bool = False, hdr: str | None = None,
+           icc: bytes | None = None,
+           photon_noise_iso: float | None = None,
+           extra_channels: list | None = None,
+           color_encoding=None, cmyk: bool = False,
+           modular: bool = False, group_order: bool | tuple = False,
+           already_downsampled: bool = False, epf: int = -1,
+           device=None, chroma_subsampling: str | None = None,
+           aux_out=None, debug_dir: str | None = None) -> bytes:
+    """Encode an sRGB image array to a JPEG XL codestream.
+
+    image: (H, W, 3) or (H, W); uint8, uint16 or float in [0, 1].
+    distance: butteraugli target for the lossy path (0 => lossless).
+    effort: >= 8 enables the butteraugli-guided quant-field iteration
+    (enc_heuristics FindBestQuantization analogue, ~3x encode time).
+    extra_channels: additional named channels beyond the in-image
+    alpha, each {"type": "alpha"|"depth"|"spot_color"|"black"|
+    "thermal"|"cfa"|"optional", "data": (H, W) uint array,
+    "name": str, "spot_color": (r, g, b, blend)} — the
+    JxlEncoderSetExtraChannelInfo surface (encode.cc:1003).
+    device: the torch device of the VarDCT stages (default ``cuda``;
+    raises when there is no card). The frames that the reference's
+    ``device=True`` sends to its device route run there; the DC frame,
+    the preview, the patch and dot sheets and the host-only modes stay
+    on the host, as in the reference.
+    """
+    device = resolve_device(device)
+    if distance == 0:
+        lossless = True
+    if chroma_subsampling is not None:
+        # 420/422 YCbCr VarDCT (DCT8X8, RAW quant tables, optional
+        # gaborish/EPF + progressive); see encode_ycbcr_vardct_frame.
+        if lossless:
+            raise ValueError("chroma_subsampling is a lossy VarDCT mode")
+        if chroma_subsampling not in ("420", "422"):
+            raise ValueError("chroma_subsampling must be '420' or '422'")
+        from libjxl_tpu_torch.frame.encode_frame import encode_ycbcr_vardct_frame
+        img = np.asarray(image)
+        if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+            raise ValueError("chroma_subsampling expects (H, W, 3) uint8")
+        meta = CodecMetadata()
+        meta.size.set(img.shape[1], img.shape[0])
+        meta.m.bit_depth = BitDepth.uint(8)
+        meta.m.xyb_encoded = False
+        meta.m.color_encoding = ColorEncoding.srgb(is_gray=False)
+        writer = BitWriter()
+        write_codestream_headers(meta, writer)
+        encode_ycbcr_vardct_frame(img, meta, writer, distance=distance,
+                                  subsampling=chroma_subsampling,
+                                  epf=epf, progressive=progressive)
+        writer.align_to_byte()
+        data = writer.get_bytes()
+        if container:
+            data = pack_container(data)
+        return data
+    if modular and not lossless:
+        # Lossy modular (cjxl -m with -d > 0): RCT + full squeeze,
+        # post-squeeze residuals snapped to quality-scaled multiples
+        # (enc_modular.cc:980 "responsive" mode).
+        return _encode_modular_lossy(image, distance, container)
+    if cmyk:
+        # CMYK input: (H, W, 4) ink fractions (or uint8/16). The JXL
+        # convention stores inverted samples (1.0 = white / no ink,
+        # jxl_cms.cc:260) as 3 color channels + a kBlack extra channel.
+        if image.ndim != 3 or image.shape[2] != 4:
+            raise ValueError("cmyk=True expects an (H, W, 4) image")
+        if image.dtype.kind == "u":
+            mv = np.iinfo(image.dtype).max
+            inv = (mv - image.astype(np.int64)).astype(image.dtype)
+        else:
+            inv = (1.0 - image).astype(image.dtype)
+        extra_channels = list(extra_channels or [])
+        extra_channels.insert(0, {"type": "black", "data": inv[:, :, 3],
+                                  "name": "K"})
+        image = np.ascontiguousarray(inv[:, :, :3])
+    if image.ndim == 2:
+        image = image[:, :, None]
+    h, w, nchan = image.shape
+    has_alpha = nchan in (2, 4)
+    if image.dtype == np.uint8:
+        bits = 8
+        scale = 255.0
+    elif image.dtype == np.uint16:
+        bits = 16
+        scale = 65535.0
+    else:
+        bits = 8 if not lossless else 16
+        scale = 1.0
+
+    meta = CodecMetadata()
+    if already_downsampled and resampling != 1:
+        # ALREADY_DOWNSAMPLED: the supplied pixels are at the coded
+        # (1/N) resolution; the image header carries the full size
+        # (encode.h JXL_ENC_FRAME_SETTING_ALREADY_DOWNSAMPLED).
+        meta.size.set(w * resampling, h * resampling)
+    else:
+        meta.size.set(w, h)
+    meta.m.bit_depth = BitDepth.uint(bits)
+    if hdr is not None:
+        # HDR signalling: BT.2100 primaries + PQ/HLG transfer and the
+        # matching intensity/tone targets (image_metadata ToneMapping).
+        from libjxl_tpu_torch.color.color_encoding import (
+            Primaries, TransferFunction)
+        ce = ColorEncoding.srgb(is_gray=False)
+        ce.primaries = int(Primaries.BT2100)
+        ce.tf.have_gamma = False
+        ce.tf.transfer_function = int(
+            TransferFunction.PQ if hdr.lower() == "pq"
+            else TransferFunction.HLG)
+        meta.m.color_encoding = ce
+        meta.m.tone_mapping.intensity_target =             10000.0 if hdr.lower() == "pq" else 1000.0
+        meta.m.tone_mapping.all_default = False
+    if color_encoding is not None:
+        # cjxl -x color_space= hint: samples are in the described
+        # space (lib/extras color hints; lossless passthrough only —
+        # the lossy path's XYB transform assumes sRGB input).
+        if isinstance(color_encoding, str):
+            from libjxl_tpu_torch.color.color_description import (
+                parse_color_description)
+            color_encoding = parse_color_description(color_encoding)
+        if not lossless:
+            raise ValueError(
+                "color_encoding hints require lossless=True; use hdr= "
+                "or icc= for the lossy path")
+        color_encoding.all_default = False
+        meta.m.color_encoding = color_encoding
+    if icc is not None:
+        # Embedded ICC: samples are in the profile's space
+        # (color_encoding want_icc + compressed-ICC payload).
+        meta.m.color_encoding.want_icc = True
+        meta.m.color_encoding.all_default = False
+        meta.icc_profile = icc
+    if has_alpha:
+        meta.m.set_alpha_bits(bits)
+    ec_planes: list = []
+    if extra_channels:
+        from libjxl_tpu_torch.frame.headers import (
+            BitDepth as _BD, ExtraChannelInfo, ExtraChannelType)
+        type_names = {
+            "alpha": ExtraChannelType.ALPHA,
+            "depth": ExtraChannelType.DEPTH,
+            "spot_color": ExtraChannelType.SPOT_COLOR,
+            "selection_mask": ExtraChannelType.SELECTION_MASK,
+            "black": ExtraChannelType.BLACK,
+            "cfa": ExtraChannelType.CFA,
+            "thermal": ExtraChannelType.THERMAL,
+            "optional": ExtraChannelType.OPTIONAL,
+        }
+        for spec in extra_channels:
+            ctype = spec.get("type", "optional")
+            if isinstance(ctype, str):
+                ctype = type_names[ctype.lower()]
+            plane = np.asarray(spec["data"])
+            if plane.shape != (h, w):
+                raise ValueError("extra channel shape mismatch")
+            ec_bits = int(spec.get("bits", bits))
+            eci = ExtraChannelInfo(all_default=False, type=int(ctype),
+                                   bit_depth=_BD.uint(ec_bits),
+                                   name=spec.get("name", ""))
+            if "spot_color" in spec:
+                eci.spot_color = tuple(float(x)
+                                       for x in spec["spot_color"])
+            meta.m.extra_channel_info.append(eci)
+            ec_planes.append(plane.astype(np.int32))
+        meta.m.all_default = False
+    pw_img = None
+    if preview and not lossless:
+        div = max(1, (max(h, w) + 127) // 128)
+        ph, pw_ = max(1, h // div), max(1, w // div)
+        meta.m.have_preview = True
+        meta.m.preview_size.div8 = False
+        meta.m.preview_size.ysize_raw = ph
+        meta.m.preview_size.ratio = 0
+        meta.m.preview_size.xsize_raw = pw_
+        pimg = image[:h - h % div or h, :w - w % div or w, :3]
+        hh, ww = (h // div) * div, (w // div) * div
+        pw_img = image[:hh, :ww, :min(3, image.shape[2])].astype(np.float32)
+        pw_img = pw_img.reshape(ph, div, pw_, div, -1).mean((1, 3))
+    writer = BitWriter()
+    if lossless:
+        meta.m.xyb_encoded = False
+        if hdr is None and icc is None and color_encoding is None:
+            meta.m.color_encoding = ColorEncoding.srgb(
+                is_gray=(nchan - (1 if has_alpha else 0)) == 1)
+        if image.dtype not in (np.uint8, np.uint16):
+            raise ValueError("lossless encode expects integer samples")
+        write_codestream_headers(meta, writer)
+        ncolor = nchan - 1 if has_alpha else nchan
+        channels = [image[:, :, c].astype(np.int32) for c in range(ncolor)]
+        if has_alpha:
+            channels.append(image[:, :, -1].astype(np.int32))
+        channels.extend(ec_planes)
+        pos0 = writer.bits_written
+        if effort <= 3:
+            # Fast-lossless path (fjxl analogue): fixed YCoCg + fixed
+            # gradient tree, no search.
+            from libjxl_tpu_torch.modular.codec import Transform, TransformId
+            transforms = [Transform(id=TransformId.RCT, begin_c=0,
+                                    rct_type=6)] if ncolor >= 3 else []
+            # Prefix codes at e<=2 (enc_fast_lossless.cc uses prefix
+            # over ANS: cheaper build, forward native emission); no
+            # LZ77 trial at e1.
+            encode_modular_frame(channels, meta, writer,
+                                 transforms=transforms, learn_tree=False,
+                                 use_prefix=effort <= 2,
+                                 try_lz77=effort > 1)
+        else:
+            from libjxl_tpu_torch.frame.enc_modular_heuristics import (
+                select_modular_transforms)
+            transforms = select_modular_transforms(channels, bits)
+            encode_modular_frame(channels, meta, writer,
+                                 transforms=transforms)
+        if aux_out is not None:
+            aux_out.add("modular_global", writer.bits_written - pos0)
+    else:
+        meta.m.xyb_encoded = True
+        write_codestream_headers(meta, writer)
+        ncolor = nchan - 1 if has_alpha else nchan
+        srgb = image[:, :, :min(ncolor, 3)].astype(np.float32) / scale
+        if ncolor == 1:
+            srgb = np.repeat(srgb, 3, axis=2)
+        if hdr is not None:
+            # HDR: apply the signalled transfer function; XYB input is
+            # linear light in nits/255 units (enc_xyb.cc
+            # ComputePremulAbsorb: mul = intensity_target / 255).
+            from libjxl_tpu_torch.color.transfer_functions import (
+                hlg_display_from_encoded, hlg_ootf, hlg_ootf_gamma,
+                pq_display_from_encoded)
+            it = meta.m.tone_mapping.intensity_target
+            enc01 = srgb.transpose(2, 0, 1).astype(np.float64)
+            if hdr.lower() == "pq":
+                linear = (pq_display_from_encoded(enc01)
+                          * (10000.0 / 255.0)).astype(np.float32)
+            else:
+                scene = hlg_display_from_encoded(enc01)
+                disp = hlg_ootf(scene, hlg_ootf_gamma(it))
+                linear = (disp * (it / 255.0)).astype(np.float32)
+        elif image.dtype == np.uint8 and scale == 255.0:
+            from libjxl_tpu_torch.color.xyb import (srgb8_to_xyb_native,
+                                              srgb_to_linear_u8)
+            src = image[:, :, :min(ncolor, 3)]
+            if ncolor == 1:
+                src = np.repeat(src, 3, axis=2)
+            xyb = srgb8_to_xyb_native(src)
+            linear = None if xyb is not None \
+                else srgb_to_linear_u8(src).transpose(2, 0, 1)
+        else:
+            linear = srgb_to_linear(srgb).transpose(2, 0, 1)
+        if linear is not None:
+            xyb = linear_rgb_to_xyb(linear)
+        extra = [image[:, :, -1].astype(np.int32)] if has_alpha else []
+        extra = (extra + ec_planes) or None
+        if photon_noise_iso:
+            # JXL_ENC_FRAME_SETTING_PHOTON_NOISE: ISO-based grain model
+            # (enc_photon_noise.cc SimulatePhotonNoise).
+            from libjxl_tpu_torch.frame.noise import simulate_photon_noise
+            noise = simulate_photon_noise(w, h, photon_noise_iso)
+        elif noise == "auto":
+            from libjxl_tpu_torch.frame.noise import estimate_noise
+            lut = estimate_noise(xyb)
+            noise = float(lut.mean()) if lut is not None else None
+        frame_kwargs = dict(distance=distance, extra_channels=extra,
+                            pass_shifts=[2, 0] if progressive else None,
+                            noise=noise, resampling=resampling,
+                            ar_sharpness=effort >= 6, effort=effort,
+                            aux_out=aux_out, debug_dir=debug_dir,
+                            group_order_center=group_order or None,
+                            already_downsampled=already_downsampled,
+                            epf=epf, device=device)
+        if dc_frame and resampling == 1:
+            # 1:8 DC frame (kUseDcFrame): encode the 8x-downsampled
+            # image as a kDCFrame, then reference it from the main
+            # frame (dec_frame.cc dc_frames).
+            # The main frame stores the DC of the gaborish-inverted
+            # planes, so the DC frame must carry that same signal.
+            from libjxl_tpu_torch.frame.adaptive_quant import gaborish_inverse
+            inv = gaborish_inverse(xyb)
+            _, fy, fx = inv.shape
+            py, px = (-fy) % 8, (-fx) % 8
+            pimg2 = np.pad(inv, ((0, 0), (0, py), (0, px)), mode="edge")
+            dc_img = pimg2.reshape(3, (fy + py) // 8, 8,
+                                   (fx + px) // 8, 8).mean((2, 4))
+            # Encode once standalone (identical alignment) to learn the
+            # decoded DC the main frame must assume.
+            # DC deserves near-lossless coding (it becomes every
+            # block's mean); cost is tiny at 1/64th the pixels.
+            dc_dist = max(0.02, 0.04 * distance)
+            trial = BitWriter()
+            write_codestream_headers(meta, trial)
+            encode_vardct_frame(dc_img, meta, trial, distance=dc_dist,
+                                dc_frame_level=1)
+            from libjxl_tpu_torch.frame.decode_frame import decode_frame
+            tr = BitReader(trial.get_bytes())
+            read_codestream_headers(tr)
+            decoded_dc = decode_frame(tr, meta).xyb
+            encode_vardct_frame(dc_img, meta, writer, distance=dc_dist,
+                                dc_frame_level=1)
+            frame_kwargs["external_dc"] = decoded_dc
+        if pw_img is not None:
+            scale_p = 255.0 if bits == 8 else 65535.0
+            psrgb = pw_img / scale_p
+            if psrgb.shape[2] == 1:
+                psrgb = np.repeat(psrgb, 3, axis=2)
+            pxyb = linear_rgb_to_xyb(
+                srgb_to_linear(psrgb.astype(np.float32)).transpose(2, 0, 1))
+            encode_vardct_frame(pxyb, meta, writer, distance=max(
+                distance, 1.0), is_preview=True)
+        if patches and resampling == 1 and not has_alpha:
+            # Text-like patch dictionary for screenshot/UI content
+            # (enc_patch_dictionary.cc:620 FindBestPatchDictionary).
+            from libjxl_tpu_torch.frame.text_patches import (
+                build_text_patch_sheet, find_text_like_patches)
+            found = find_text_like_patches(xyb)
+            if found:
+                sheet, pd, cleaned = build_text_patch_sheet(xyb, found)
+                sh, sw = sheet.shape[1:]
+                if sh <= xyb.shape[1] and sw <= xyb.shape[2]:
+                    canvas = np.zeros_like(xyb)
+                    canvas[:, :sh, :sw] = sheet
+                    encode_vardct_frame(canvas, meta, writer,
+                                        distance=min(distance, 0.1),
+                                        save_as_reference=1)
+                    xyb = cleaned
+                    frame_kwargs["patches"] = pd
+                    dots = False
+        if dots and resampling == 1:
+            from libjxl_tpu_torch.frame.dots import build_dot_sheet, detect_dots
+            dot_list, cleaned = detect_dots(xyb, distance)
+            if dot_list:
+                sheet, pd = build_dot_sheet(xyb, dot_list)
+                canvas = np.zeros_like(xyb)
+                sh, sw = sheet.shape[1:]
+                if sh <= canvas.shape[1] and sw <= canvas.shape[2]:
+                    canvas[:, :sh, :sw] = sheet
+                    encode_vardct_frame(canvas, meta, writer,
+                                        distance=min(distance, 0.3),
+                                        save_as_reference=1)
+                    xyb = cleaned
+                    frame_kwargs["patches"] = pd
+        qf_adjust = None
+        if effort >= 8 and resampling == 1 and noise is None:
+            # e8 -> 2 refinement iterations, e9 -> 3, e10 (the
+            # kGlacier/kTectonicPlate-class exhaustive tier,
+            # common.h:42-71) -> 5 with a finer step.
+            iters = {8: 2, 9: 3}.get(effort, 5)
+            qf_adjust = _butteraugli_qf_iteration(
+                image, srgb, xyb, meta, writer, distance, frame_kwargs,
+                iterations=iters, fine=effort >= 10)
+        encode_vardct_frame(xyb, meta, writer, qf_adjust=qf_adjust,
+                            **frame_kwargs)
+    writer.align_to_byte()
+    data = writer.get_bytes()
+    return pack_container(data) if container else data
+
+
+def _butteraugli_qf_iteration(image, srgb, xyb, meta, header_writer,
+                              distance, frame_kwargs,
+                              iterations: int = 2,
+                              fine: bool = False) -> np.ndarray:
+    """Iteratively refines a per-8x8-block quant-field multiplier so
+    the decoded butteraugli error tracks the target distance
+    (enc_heuristics.cc FindBestQuantization's role). ``fine`` (the
+    effort-10 tier) takes smaller, better-damped steps so the extra
+    iterations converge instead of oscillating."""
+    from libjxl_tpu_torch.frame.decode_frame import decode_frame
+    from libjxl_tpu_torch.metrics.butteraugli import butteraugli_diffmap
+
+    h, w = srgb.shape[:2]
+    by, bx = (h + 7) // 8, (w + 7) // 8
+    adjust = np.ones((by + 4, bx + 4), np.float32)
+    ref_linear = srgb_to_linear(srgb).transpose(2, 0, 1).astype(np.float64)
+    header_bytes_writer = BitWriter()
+    # Re-create the headers so trial streams are self-contained.
+    write_codestream_headers(meta, header_bytes_writer)
+    best = (np.inf, adjust.copy())   # (measured overshoot, field)
+    for _ in range(iterations + 1):
+        trial = BitWriter()
+        write_codestream_headers(meta, trial)
+        encode_vardct_frame(xyb, meta, trial,
+                            qf_adjust=adjust, **frame_kwargs)
+        trial.align_to_byte()
+        # The host decode, as the reference's (device=False).
+        res = _decode_impl(trial.get_bytes(), None)
+        dec_srgb = res.pixels[:, :, :3].astype(np.float32) / \
+            (255.0 if res.pixels.dtype == np.uint8 else 65535.0)
+        dec_linear = srgb_to_linear(dec_srgb).transpose(2, 0, 1) \
+            .astype(np.float64)
+        dmap = butteraugli_diffmap(ref_linear, dec_linear)
+        # Per-block 90th-percentile error vs the target distance.
+        pb, qb = by * 8 - h, bx * 8 - w
+        dpad = np.pad(dmap, ((0, pb), (0, qb)), mode="edge")
+        blocks = dpad.reshape(by, 8, bx, 8).transpose(0, 2, 1, 3) \
+            .reshape(by, bx, 64)
+        err = np.quantile(blocks, 0.9, axis=-1)
+        step_exp, step_lim = (0.35, 1.12) if fine else (0.6, 1.3)
+        ratio = np.clip((err / max(distance, 1e-6)) ** step_exp,
+                        1 / step_lim, step_lim)
+        # Keep the step monotone toward the target: while the global
+        # distance overshoots, blocks may only get finer (and vice
+        # versa) — per-block relaxation otherwise trades bits away from
+        # the blocks that set the max norm (FindBestQuantization's
+        # one-sided update, enc_adaptive_quantization.cc:929).
+        global_err = float(dmap.max())
+        # Track the best MEASURED field: the loop's last update would
+        # otherwise ship unmeasured, and an overshooting step could
+        # leave e8 worse than the e7 baseline.
+        score = max(global_err - distance, 0.0) * 4.0 + global_err
+        if score < best[0]:
+            best = (score, adjust.copy())
+        if global_err > distance:
+            ratio = np.maximum(ratio, 1.0)
+        elif global_err < 0.9 * distance:
+            ratio = np.minimum(ratio, 1.0)
+        adjust[:by, :bx] = np.clip(adjust[:by, :bx] * ratio, 0.4, 2.5)
+    return best[1]
+
+
+
+def _encode_modular_lossy(image: np.ndarray, distance: float,
+                          container: bool) -> bytes:
+    from libjxl_tpu_torch.frame.encode_frame import encode_modular_frame
+    from libjxl_tpu_torch.modular.codec import Transform, TransformId
+
+    if image.ndim == 2:
+        image = image[:, :, None]
+    h, w, nchan = image.shape
+    if image.dtype not in (np.uint8, np.uint16):
+        raise ValueError("modular encode expects integer samples")
+    bits = 8 if image.dtype == np.uint8 else 16
+    meta = CodecMetadata()
+    meta.size.set(w, h)
+    meta.m.bit_depth = BitDepth.uint(bits)
+    meta.m.xyb_encoded = False
+    meta.m.color_encoding = ColorEncoding.srgb(is_gray=nchan == 1)
+    writer = BitWriter()
+    write_codestream_headers(meta, writer)
+    channels = [image[:, :, c].astype(np.int32)
+                for c in range(min(nchan, 3))]
+    transforms = []
+    if len(channels) >= 3:
+        transforms.append(Transform(id=TransformId.RCT, begin_c=0,
+                                    rct_type=6))
+    transforms.append(Transform(id=TransformId.SQUEEZE, squeezes=[]))
+    encode_modular_frame(channels, meta, writer, transforms=transforms,
+                         lossy_distance=distance)
+    writer.align_to_byte()
+    data = writer.get_bytes()
+    return pack_container(data) if container else data
 
 
 def _apply_orientation(arr: np.ndarray, orientation: int) -> np.ndarray:

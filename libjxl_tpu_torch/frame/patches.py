@@ -5,10 +5,6 @@ patch_dictionary_internal.h (context numbering, spec C.4.5),
 enc_patch_dictionary.cc (encoding side). Patches are decoded from an
 ANS stream in LfGlobal and blitted onto the XYB image from reference
 frames saved by earlier kReferenceOnly frames.
-
-Copy of libjxl_tpu/frame/patches.py, decode side only (the port has no
-encoder): ``decode_patches``, ``apply_patches``, ``apply_patches_band``
-and ``patch_affine``.
 """
 
 from __future__ import annotations
@@ -19,7 +15,7 @@ import enum
 import numpy as np
 
 from libjxl_tpu_torch.base.errors import BitstreamError
-from libjxl_tpu_torch.base.signed import unpack_signed
+from libjxl_tpu_torch.base.signed import pack_signed, unpack_signed
 
 # Context numbering (patch_dictionary_internal.h:12-23).
 NUM_REF_PATCH_CTX = 0
@@ -157,6 +153,50 @@ def decode_patches(br, xsize: int, ysize: int, num_extra_channels: int,
     if not dec.check_final_state():
         raise BitstreamError("bad ANS state in patch dictionary")
     return d
+
+
+def encode_patches(d: PatchDictionary, num_extra_channels: int, w) -> None:
+    """enc_patch_dictionary.cc Encode: same token order as decode."""
+    from libjxl_tpu_torch.entropy.codes import build_and_encode_histograms, \
+        write_tokens
+
+    tokens = []
+
+    def put(ctx, val):
+        tokens.append((ctx, val))
+
+    # Group positions by ref_idx preserving dictionary order.
+    put(NUM_REF_PATCH_CTX, len(d.ref_positions))
+    choose_alpha = num_extra_channels > 1
+    for ref_idx, rp in enumerate(d.ref_positions):
+        put(REFERENCE_FRAME_CTX, rp.ref)
+        put(PATCH_REFERENCE_POSITION_CTX, rp.x0)
+        put(PATCH_REFERENCE_POSITION_CTX, rp.y0)
+        put(PATCH_SIZE_CTX, rp.xsize - 1)
+        put(PATCH_SIZE_CTX, rp.ysize - 1)
+        members = [i for i, p in enumerate(d.positions)
+                   if p.ref_idx == ref_idx]
+        put(PATCH_COUNT_CTX, len(members) - 1)
+        for k, i in enumerate(members):
+            p = d.positions[i]
+            if k == 0:
+                put(PATCH_POSITION_CTX, p.x)
+                put(PATCH_POSITION_CTX, p.y)
+            else:
+                prev = d.positions[members[k - 1]]
+                put(PATCH_OFFSET_CTX, pack_signed(p.x - prev.x))
+                put(PATCH_OFFSET_CTX, pack_signed(p.y - prev.y))
+            for info in d.blendings[i]:
+                put(PATCH_BLEND_MODE_CTX, int(info.mode))
+                if _uses_alpha(info.mode) and choose_alpha:
+                    put(PATCH_ALPHA_CHANNEL_CTX, info.alpha_channel)
+                if _uses_clamp(info.mode):
+                    put(PATCH_CLAMP_CTX, int(info.clamp))
+
+    arrs = (np.array([t[0] for t in tokens], np.int32),
+            np.array([t[1] for t in tokens], np.int64))
+    codes = build_and_encode_histograms(NUM_PATCH_CONTEXTS, [arrs], w)
+    write_tokens(arrs, codes, w)
 
 
 def apply_patches(d: PatchDictionary, xyb: np.ndarray,

@@ -1,8 +1,8 @@
 """Tests that need an NVIDIA card: the hand-written EPF kernel against
 its plain PyTorch version (single frames, batches, custom loop-filter
-weights), and the decode on the card (single, batched, with post
-stages, and the public ``decode``/``decode_all``) against the plain CPU
-path. They import neither jax nor the JAX package, so they run on a
+weights), the decode on the card (single, batched, with post stages,
+and the public ``decode``/``decode_all``) and the encoder (``encode``
+and its stages) against the plain CPU path. They import neither jax nor the JAX package, so they run on a
 machine that has only the port:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -339,3 +339,79 @@ def test_blend_and_spot_stages_on_card(cuda_device):
                              rgba.to(cuda_device))
     ref = stages.render_spot(color, mixes, rgba)
     assert (got.cpu() - ref).abs().max().item() <= 1e-6
+
+
+def _photo(size, seed=5):
+    """bench.py's ``_test_photo``: smooth bands and noise, 8-bit."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:size, 0:size]
+    img = np.clip(np.stack(
+        [0.5 + 0.3 * np.sin(x / 17 + c) * np.cos(y / 23)
+         + 0.1 * np.sin((x + y) / 41)
+         + rng.normal(0, 0.02, (size, size)) for c in range(3)], -1), 0, 1)
+    return (img * 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("effort", [5, 7])
+@pytest.mark.parametrize("size", [256, 1024])
+def test_encode_on_card_matches_cpu(size, effort, cuda_device):
+    """The VarDCT stages on the card (counted) against the CPU route: the
+    size within max(8 B, 1%), the decodes within 2 LSB."""
+    from libjxl_tpu_torch.ops import encode as ep
+    img = _photo(size)
+    ep.calls.clear()
+    card = libjxl_tpu_torch.encode(img, distance=1.0, effort=effort)
+    assert ep.calls[("encode_stage_b", "cuda")] == 1
+    assert all(k[1] == "cuda" for k in ep.calls), dict(ep.calls)
+    cpu = libjxl_tpu_torch.encode(img, distance=1.0, effort=effort,
+                                  device="cpu")
+    assert abs(len(card) - len(cpu)) <= max(8, 0.01 * len(cpu))
+    pc = libjxl_tpu_torch.decode(card).pixels.astype(np.int64)
+    pp = libjxl_tpu_torch.decode(cpu).pixels.astype(np.int64)
+    assert pc.shape == (size, size, 3)
+    assert np.abs(pc - pp).max() <= 2
+
+
+def test_encode_stages_on_card_match_cpu(cuda_device):
+    """Stage pre and stage B (effort 7: every class) on the card and on
+    the CPU from the same inputs: the quant field within 1e-5 relative,
+    the planes within 1e-5, the integer outputs equal up to the shares
+    that chip_smoke.py gates the 4K frame with."""
+    import chip_smoke
+    from libjxl_tpu_torch.frame.adaptive_quant import initial_quant_dc
+    from libjxl_tpu_torch.ops import encode as ep
+    from libjxl_tpu_torch.vardct.cfl import ColorCorrelation
+    from libjxl_tpu_torch.vardct.quant_weights import DequantMatrices
+    from libjxl_tpu_torch.vardct.quantizer import QUANT_MAX, Quantizer
+    from libjxl_tpu_torch.color.xyb import linear_rgb_to_xyb, srgb_to_linear
+    srgb = _photo(256).astype(np.float32) / 255
+    pre = linear_rgb_to_xyb(srgb_to_linear(srgb).transpose(2, 0, 1))
+    pre = torch.from_numpy(np.ascontiguousarray(pre, np.float32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        qf, planes = ep.encode_stage_pre(pre.to(dev), 1.0, True)
+        out[dev] = [qf.cpu().numpy(), planes.cpu()]
+    qf, planes = out["cuda"]
+    assert np.max(np.abs(qf - out["cpu"][0]) / out["cpu"][0]) <= 1e-5
+    assert (planes - out["cpu"][1]).abs().max().item() <= 1e-5
+    matrices = DequantMatrices()
+    quantizer = Quantizer(matrices)
+    raw_quant = quantizer.set_quant_field(initial_quant_dc(1.0), qf)
+    cm = ColorCorrelation()
+    fn = ep.stage_b(7, QUANT_MAX, cm.base_correlation_x,
+                    cm.base_correlation_b, cm.color_scale)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        d = torch.device(dev)
+        f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=d)
+        r = fn(planes.to(d), torch.from_numpy(raw_quant).to(d),
+               f32(quantizer.inv_global_scale), f32(1.0), f32(1.0),
+               f32(quantizer.mul_dc()), f32(cm.dc_factors()),
+               ep.tables_to_torch(ep.make_tables(matrices), d))
+        res[dev] = ep.to_host(r)
+    for k, limit in chip_smoke.ENC_STAGE_SHARE.items():
+        pairs = ([(res["cuda"]["big_q"][c], res["cpu"]["big_q"][c])
+                  for c in res["cpu"]["big_q"]] if k == "big_q"
+                 else [(res["cuda"][k], res["cpu"][k])])
+        for a, b in pairs:
+            assert (a != b).mean() <= limit, (k, float((a != b).mean()))

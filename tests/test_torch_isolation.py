@@ -1,7 +1,8 @@
-"""The port stands alone: importing every module of libjxl_tpu_torch and
+"""The port stands alone: importing every module of libjxl_tpu_torch,
 decoding a frame on the CPU (``decode_device``, ``decode``,
-``decode_all``) loads neither ``jax`` nor anything of ``libjxl_tpu``,
-and no port source (or chip_smoke.py) imports them."""
+``decode_all``) and encoding one (``encode``) loads neither ``jax`` nor
+anything of ``libjxl_tpu``, and no port source (or chip_smoke.py)
+imports them."""
 
 import os
 import re
@@ -29,6 +30,11 @@ res = libjxl_tpu_torch.decode(data, device="cpu")
 assert res.pixels.shape == (64, 80, 3), res.pixels.shape
 frames, _ = libjxl_tpu_torch.decode_all(data, device="cpu")
 assert len(frames) == 1 and frames[0].pixels.shape == (64, 80, 3)
+import numpy as np
+img = (np.random.default_rng(1).uniform(0, 1, (48, 40, 3)) * 255).astype(
+    np.uint8)
+enc = libjxl_tpu_torch.encode(img, distance=1.0, effort=7, device="cpu")
+assert libjxl_tpu_torch.decode(enc, device="cpu").pixels.shape == (48, 40, 3)
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "libjxl_tpu" or n.startswith("libjxl_tpu."))
@@ -104,14 +110,27 @@ def test_every_imported_port_module_exists():
     assert not missing, missing
 
 
-# The modules the public decode API brought into the port.
+# The modules the public decode API and the device encoder brought into
+# the port.
 API_MODULES = ["libjxl_tpu_torch.api", "libjxl_tpu_torch.api.simple",
                "libjxl_tpu_torch.parallel",
                "libjxl_tpu_torch.parallel.runner",
                "libjxl_tpu_torch.color.transfer_functions",
                "libjxl_tpu_torch.color.ycbcr",
                "libjxl_tpu_torch.color.cms",
-               "libjxl_tpu_torch.frame.patches"]
+               "libjxl_tpu_torch.frame.patches",
+               "libjxl_tpu_torch.ops.encode",
+               "libjxl_tpu_torch.frame.encode_frame",
+               "libjxl_tpu_torch.frame.adaptive_quant",
+               "libjxl_tpu_torch.frame.acs_select",
+               "libjxl_tpu_torch.frame.cfl_fit",
+               "libjxl_tpu_torch.frame.ar_heuristic",
+               "libjxl_tpu_torch.frame.text_patches",
+               "libjxl_tpu_torch.frame.dots",
+               "libjxl_tpu_torch.frame.enc_modular_heuristics",
+               "libjxl_tpu_torch.metrics",
+               "libjxl_tpu_torch.metrics.butteraugli",
+               "libjxl_tpu_torch.color.color_description"]
 
 
 @pytest.mark.parametrize("name", API_MODULES)

@@ -4,6 +4,7 @@ part of the port (it imports ``libjxl_tpu``); pytest does not collect
 it.
 
     python tests/torch_corpus/generate.py [up2|splines|patches|anim|spot]
+    python tests/torch_corpus/generate.py corpus-sizes
 
 - ``4k_hdr_pq_d2_e5_up2_iso3200_epf3.jxl``: the content of
   ``tools/gen_bench_corpus.py:make_image(0)`` (3840x2160, 16-bit),
@@ -27,6 +28,14 @@ it.
   builds its spot stream, at this size.
 
 The generation is deterministic (fixed seeds and encoder settings).
+
+``corpus-sizes`` writes nothing: it encodes ``make_image(0)`` at 3840x2160
+and its 1920x1080 crop with the settings of ``bench_corpus/`` (distance
+1, effort 5, PQ, progressive, EPF 3) through the JAX package's host
+encoder as it stands, and prints each stream's size beside the
+committed one's (``bench_corpus/4k_hdr_pq_d1_e5_prog_epf3_0.jxl`` and
+``bench_corpus/1080p_hdr_pq_d1_e5_prog_epf3.jxl``) and whether the bytes
+are the same. The host encoder needs no ``jax``.
 """
 
 import importlib.util
@@ -209,12 +218,28 @@ def encode_spot() -> None:
     _write(SPOT, encode(img, lossless=True, extra_channels=ecs), t0)
 
 
+def corpus_sizes() -> None:
+    from libjxl_tpu.api.simple import encode
+    img16 = _bench_image(0)
+    for name, img in (("4k_hdr_pq_d1_e5_prog_epf3_0.jxl", img16),
+                      ("1080p_hdr_pq_d1_e5_prog_epf3.jxl",
+                       np.ascontiguousarray(img16[:1080, :1920]))):
+        t0 = time.time()
+        data = encode(img, distance=1.0, effort=5, hdr="pq",
+                      progressive=True, epf=3)
+        with open(os.path.join(ROOT, "bench_corpus", name), "rb") as f:
+            ref = f.read()
+        print(f"{name}: host encoder {len(data)} bytes in "
+              f"{time.time() - t0:.1f} s, committed {len(ref)} bytes, "
+              f"identical {data == ref}", flush=True)
+
+
 def main() -> None:
     which = sys.argv[1:] or ["up2", "splines", "patches", "anim", "spot"]
     for name in which:
         {"up2": encode_up2, "splines": encode_splines,
          "patches": encode_patches, "anim": encode_anim,
-         "spot": encode_spot}[name]()
+         "spot": encode_spot, "corpus-sizes": corpus_sizes}[name]()
 
 
 if __name__ == "__main__":
