@@ -28,6 +28,17 @@ once, against ``decode_device``, with the kernel on the halo-extended
 batch held against its plain version and timed; the v1 path
 (``entry()``, ``decode_frame_device`` on the 1080p and a 4K stream's v1
 feeds) and the v0 group decode, against the CPU and the v2 decode.
+Last, the command line and the rest of the encode API (``cli_path``):
+``cjxl`` of the 1024x1024 photo as a PPM on the card and on the CPU,
+held to the encoder's gates; ``python -m libjxl_tpu_torch.cli.djxl`` of
+a 4K corpus stream to a 16-bit PNG in a fresh process and ``djxl`` to
+``.npy`` in this one, both identical to ``decode()`` on the card;
+``djxl --low-memory`` (host) within 1 LSB of ``djxl`` on the card; the
+committed JPEG transcoded by ``cjxl`` and reconstructed by ``djxl`` byte
+for byte; ``encode_streaming`` (two chunks on the host, and one
+single-group image on the card) and ``Encoder`` on the card, each byte
+for byte its reference run. The phase runs with PIL made unimportable,
+as on a machine without it.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-only
@@ -65,6 +76,7 @@ FILE_SPLINES = "1080p_splines_d1.jxl"
 FILE_PATCHES = "1080p_screen_patches_d1_e7.jxl"
 FILE_ANIM = "720p_anim4_rgba_blend_d1.jxl"
 FILE_SPOT = "1024x768_spot2_lossless.jxl"
+FILE_JPEG = "1024x768_photo_q85_420.jpg"
 E2E_FRAMES, BATCH, BATCHED_FRAMES = 8, 3, 9   # as bench.py:317-349
 BATCH_TOL = 1e-4        # a batched frame vs its single decode (XYB)
 BUDGET_S = 900          # hard limit, builds included
@@ -75,6 +87,8 @@ SUSTAINED_DECODES = 12
 ENC_SIZE, ENC_REPS = 1024, 3      # bench.py phase 4's image, timed encodes
 ENC_LSB_TOL = 2                   # card vs CPU route, decoded by the port
 QF_RTOL = 1e-5                    # quant field, card vs CPU stages
+LSB8_TOL = 1                      # 8-bit output of two routes
+STREAM_W, STREAM_H = 2500, 300    # encode_streaming: two DC-group chunks
 # Share of the entries of each stage-B output that may differ between
 # the card and the CPU on the same inputs. None differed on the 4K HDR
 # frame. What can move one: the DCT products and the bit-cost and CfL
@@ -661,6 +675,223 @@ def encode_path(torch, np, epf_cuda, smi):
                    "big_q" if k.startswith("big_q") else k]}
         if st["qf_max_rel_diff"] > QF_RTOL or bad:
             raise AssertionError(f"{key} stages, card vs CPU: {st}")
+    return launches
+
+
+def read_png16(np, data: bytes):
+    """The samples of a 16-bit RGB(A) PNG as the port's in-tree writer
+    writes it (one IDAT, filter 0 on every row); the phase runs without
+    PIL, and PIL reads such a PNG only reduced to 8 bits."""
+    import struct
+    import zlib
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    pos, idat, ihdr = 8, [], None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    w, h, depth, ctype = ihdr[:4]
+    if depth != 16 or ctype not in (2, 6):
+        raise AssertionError(f"PNG depth {depth}, colour type {ctype}")
+    ch = 3 if ctype == 2 else 4
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8) \
+        .reshape(h, 1 + w * ch * 2)
+    if rows[:, 0].any():
+        raise AssertionError("PNG rows with a filter other than 0")
+    return rows[:, 1:].copy().view(">u2").reshape(h, w, ch).astype(
+        np.uint16)
+
+
+class NoPil:
+    """While active, ``import PIL`` fails as it does where PIL is not
+    installed; the modules of PIL already imported come back after."""
+
+    def __enter__(self):
+        self.saved = {k: sys.modules.pop(k) for k in list(sys.modules)
+                      if k == "PIL" or k.startswith("PIL.")}
+        sys.modules["PIL"] = None
+        return self
+
+    def __exit__(self, *exc):
+        del sys.modules["PIL"]
+        sys.modules.update(self.saved)
+
+
+def cli_path(torch, np, epf_cuda, smi):
+    """The port's command line and the rest of its encode API at full
+    size, with the default device (the card) unless a step names the
+    CPU. Returns the EPF launches of the in-process runs (counted from
+    0 just before them); the fresh process's launch is its own."""
+    import contextlib
+    import io
+    import tempfile
+
+    import libjxl_tpu_torch
+    from libjxl_tpu_torch.api import encode_streaming
+    from libjxl_tpu_torch.api.encoder import Encoder, FrameSettings
+    from libjxl_tpu_torch.cli import cjxl, djxl
+    from libjxl_tpu_torch.extras import codecs
+
+    def lsb(a, b) -> int:
+        if a.shape != b.shape:
+            raise AssertionError(f"shapes {a.shape} and {b.shape}")
+        return int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+
+    def run(main, *argv) -> float:
+        """One CLI run in process; its wall time in ms."""
+        err = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = main([str(a) for a in argv])
+        ms = (time.perf_counter() - t) * 1e3
+        if rc != 0:
+            raise AssertionError(f"{argv}: exit {rc}: {err.getvalue()}")
+        return ms
+
+    def slurp(path) -> bytes:
+        with open(path, "rb") as f:
+            return f.read()
+
+    photo = test_photo(ENC_SIZE, ENC_SIZE, seed=5)
+    hdr_path = os.path.join(CORPUS, FILES_4K[0])
+    jpeg_path = os.path.join(POST_CORPUS, FILE_JPEG)
+    ms, checks = {}, {}
+    epf_cuda.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        def p(name):
+            return os.path.join(tmp, name)
+        with open(p("photo.ppm"), "wb") as f:
+            f.write(codecs.encode_pnm(photo))
+
+        # 1. cjxl on the card and on the CPU, held to the encoder gates.
+        ms["cjxl_card"] = run(cjxl.main, p("photo.ppm"), p("card.jxl"),
+                              "-d", "1", "-e", "5")
+        ms["cjxl_cpu"] = run(cjxl.main, p("photo.ppm"), p("cpu.jxl"),
+                             "-d", "1", "-e", "5", "--device", "cpu")
+        card_s, cpu_s = slurp(p("card.jxl")), slurp(p("cpu.jxl"))
+        dec_card = libjxl_tpu_torch.decode(card_s).pixels
+        checks["cjxl"] = {
+            "card_bytes": len(card_s), "cpu_bytes": len(cpu_s),
+            "byte_identical": card_s == cpu_s,
+            "max_lsb_diff": lsb(dec_card,
+                                libjxl_tpu_torch.decode(cpu_s).pixels),
+            "mean_abs_err_vs_source": float(np.abs(
+                dec_card.astype(np.float64) - photo).mean())}
+        c = checks["cjxl"]
+        if not (abs(c["card_bytes"] - c["cpu_bytes"])
+                <= max(8, 0.01 * c["cpu_bytes"])
+                and c["max_lsb_diff"] <= ENC_LSB_TOL):
+            raise AssertionError(f"cjxl card vs CPU: {c}")
+
+        # 2. djxl: the module entry in a fresh process (builds or loads
+        # the kernel on first use there), then in process.
+        t = time.perf_counter()
+        sub = subprocess.run(
+            [sys.executable, "-m", "libjxl_tpu_torch.cli.djxl", hdr_path,
+             p("hdr.png")], cwd=ROOT, capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=ROOT), timeout=300)
+        ms["djxl_4k_png_process"] = (time.perf_counter() - t) * 1e3
+        if sub.returncode != 0:
+            raise AssertionError(f"djxl process: exit {sub.returncode}: "
+                                 f"{sub.stderr[-3000:]}")
+        hdr_px = libjxl_tpu_torch.decode(read(FILES_4K[0])).pixels
+        png_px = read_png16(np, slurp(p("hdr.png")))
+        before = epf_cuda.launches
+        ms["djxl_4k_npy"] = run(djxl.main, hdr_path, p("hdr.npy"))
+        npy_launches = epf_cuda.launches - before
+        checks["djxl"] = {
+            "dtype": str(hdr_px.dtype), "shape": list(hdr_px.shape),
+            "png_max_code_diff": lsb(png_px, hdr_px),
+            "npy_max_code_diff": lsb(np.load(p("hdr.npy")), hdr_px),
+            "npy_epf_launches": npy_launches}
+        c = checks["djxl"]
+        if not (hdr_px.dtype == np.uint16 and hdr_px.shape == (2160, 3840, 3)
+                and c["png_max_code_diff"] == 0
+                and c["npy_max_code_diff"] == 0 and npy_launches == 1):
+            raise AssertionError(f"djxl vs decode(): {c}")
+        ms["djxl_low_memory_ppm"] = run(djxl.main, p("card.jxl"),
+                                        p("lm.ppm"), "--low-memory")
+        ms["djxl_ppm"] = run(djxl.main, p("card.jxl"), p("full.ppm"))
+        lm = codecs.load_image(p("lm.ppm")).pixels
+        full = codecs.load_image(p("full.ppm")).pixels
+        checks["low_memory"] = {"max_lsb_diff": lsb(lm, full),
+                                "dtype": str(lm.dtype)}
+        if not (lm.dtype == np.uint8 and lsb(lm, full) <= LSB8_TOL
+                and lsb(full, dec_card) == 0):
+            raise AssertionError(f"low-memory vs djxl: {checks}")
+
+        # 3. JPEG: coefficient transcode and reconstruction (host).
+        jpeg = slurp(jpeg_path)
+        ms["cjxl_jpeg"] = run(cjxl.main, jpeg_path, p("jpeg.jxl"))
+        ms["djxl_jpeg"] = run(djxl.main, p("jpeg.jxl"), p("rec.jpg"))
+        rec = slurp(p("rec.jpg"))
+        checks["jpeg"] = {"jpeg_bytes": len(jpeg),
+                          "jxl_bytes": os.path.getsize(p("jpeg.jxl")),
+                          "byte_exact": rec == jpeg}
+        if rec != jpeg:
+            raise AssertionError(f"JPEG reconstruction: {checks['jpeg']}")
+
+    # 4. The encode API: two chunks on the host, one single-group image
+    # and the Encoder on the card.
+    strip = test_photo(STREAM_W, STREAM_H, seed=5)
+    calls = []
+
+    def chunk(x0, y0, w, h):
+        calls.append((x0, y0, w, h))
+        return strip[y0:y0 + h, x0:x0 + w]
+
+    t = time.perf_counter()
+    s_card = encode_streaming(chunk, STREAM_W, STREAM_H, distance=1.0)
+    ms["encode_streaming_2chunks"] = (time.perf_counter() - t) * 1e3
+    s_cpu = encode_streaming(lambda x0, y0, w, h:
+                             strip[y0:y0 + h, x0:x0 + w], STREAM_W,
+                             STREAM_H, distance=1.0, device="cpu")
+    s_px = libjxl_tpu_torch.decode(s_card).pixels
+    err = np.abs(s_px.astype(np.float64) - strip)
+    crop = np.ascontiguousarray(photo[:256, :256])
+    t = time.perf_counter()
+    single = encode_streaming(lambda x0, y0, w, h:
+                              crop[y0:y0 + h, x0:x0 + w], 256, 256,
+                              distance=1.0)
+    ms["encode_streaming_single_group"] = (time.perf_counter() - t) * 1e3
+    single_ref = libjxl_tpu_torch.encode(crop, distance=1.0)
+    enc = Encoder(device="cuda")
+    enc.add_image_frame(photo, FrameSettings(distance=1.0))
+    t = time.perf_counter()
+    jx = enc.process_output()
+    ms["encoder_process_output"] = (time.perf_counter() - t) * 1e3
+    jx_ref = libjxl_tpu_torch.encode(
+        photo, distance=1.0, lossless=False, progressive=False, noise=None,
+        resampling=1, effort=7, dots=False, patches=True, modular=False,
+        photon_noise_iso=None, epf=-1)
+    checks["encode_api"] = {
+        "streaming_chunks": calls, "streaming_bytes": len(s_card),
+        "streaming_card_eq_cpu": s_card == s_cpu,
+        "streaming_max_err": float(err.max()),
+        "streaming_rms_err": float(np.sqrt((err ** 2).mean())),
+        "single_group_bytes": len(single),
+        "single_group_eq_encode": single == single_ref,
+        "encoder_bytes": len(jx), "encoder_eq_encode": jx == jx_ref}
+    c = checks["encode_api"]
+    if not (calls == [(0, 0, 2048, STREAM_H),
+                      (2048, 0, STREAM_W - 2048, STREAM_H)]
+            and c["streaming_card_eq_cpu"] and c["single_group_eq_encode"]
+            and c["encoder_eq_encode"] and c["streaming_max_err"] < 64
+            and c["streaming_rms_err"] < 12):
+        raise AssertionError(f"encode API: {c}")
+    # One launch per in-process decode of a stream with loop filters:
+    # the two cjxl streams, the 4K stream, djxl to .npy and to PPM, and
+    # the streamed stream.
+    launches = epf_cuda.launches
+    if launches != 6:
+        raise AssertionError(f"cli_path: {launches} EPF launches, not 6")
+    emit({"phase": "cli_path", "card": smi, "epf_launches": launches,
+          "wall_ms": ms, "checks": checks})
     return launches
 
 
@@ -1361,7 +1592,13 @@ def main(argv=None) -> int:
                                               smi)
     max_err = max(max_err, halo_row["max_abs_err"])
 
-    # ---- 10. kernels (the line before the last) ----
+    # ---- 10. command line and the rest of the encode API ----
+    _phase[0] = "cli_path"
+    torch.cuda.empty_cache()
+    with NoPil():                 # nothing of the phase may need PIL
+        cli_launches = cli_path(torch, np, epf_cuda, smi)
+
+    # ---- 11. kernels (the line before the last) ----
     _phase[0] = "kernels"
     emit({"phase": "done", "wall_s": time.monotonic() - t0})
     emit({"kernels": [{
@@ -1371,7 +1608,7 @@ def main(argv=None) -> int:
         "replaces": "libjxl_tpu/ops/epf_pallas.py:233",
         "launches": (main_launches + post_launches + e2e_launches
                      + batched_launches + api_launches
-                     + enc_launches + sharded_launches),
+                     + enc_launches + sharded_launches + cli_launches),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

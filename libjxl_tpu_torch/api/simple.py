@@ -1,12 +1,12 @@
-"""One-shot API of the port: ``encode``, ``decode`` and ``decode_all``.
+"""One-shot API of the port.
 
 encode(): (H, W, 3) or (H, W) arrays -> .jxl codestream bytes.
 decode(): codestream bytes -> pixels + metadata.
 decode_all(): every displayed frame of an animation, blended.
+encode_animation(), encode_streaming(): animations and chunked encode.
 
-Copy of libjxl_tpu/api/simple.py without ``encode_animation`` and
-``encode_streaming``, on the reference's device routes with ``device`` a
-torch device (default ``cuda``, raising without a card):
+Copy of libjxl_tpu/api/simple.py, on the reference's device routes with
+``device`` a torch device (default ``cuda``, raising without a card):
 - ``encode`` (with ``_butteraugli_qf_iteration`` and
   ``_encode_modular_lossy``) runs the VarDCT frames that the
   reference's ``encode(img, device=True)`` sends to its device route
@@ -21,7 +21,11 @@ torch device (default ``cuda``, raising without a card):
   blends and stays there; the XYB comes back to the host, which converts
   it to output pixels, as the reference does. There is no host-only
   mode: the JAX package's host decoder is the oracle the tests hold the
-  port against.
+  port against;
+- ``encode_animation`` runs on the host, as the reference's does, and
+  takes no device; ``encode_streaming`` encodes its chunks on the host
+  and passes ``device`` only to the one-shot ``encode`` of a
+  single-group image.
 
 Reference analogue: lib/extras/enc/jxl.cc EncodeImageJXL /
 lib/extras/dec/jxl.cc DecodeImageJXL driving the C API.
@@ -922,3 +926,97 @@ def decode_all(data: bytes, device=None
         if fh.is_last:
             break
     return results, meta
+
+
+def encode_animation(frames: list, *, durations: list | None = None,
+                     tps: tuple = (10, 1), distance: float = 1.0,
+                     lossless: bool = False, num_loops: int = 0,
+                     blend: bool = False) -> bytes:
+    """Encode a list of (H, W, C) uint8/uint16 frames as an animation.
+
+    durations: per-frame tick counts (default 1 tick each);
+    tps: (numerator, denominator) ticks per second.
+    blend=True composes frames 1.. over the canvas with alpha
+    (BlendMode.BLEND; lossy path only) instead of replacing it."""
+    if not frames:
+        raise ValueError("need at least one frame")
+    first = frames[0]
+    if durations is None:
+        durations = [1] * len(frames)
+    if first.ndim == 2:
+        frames = [f[:, :, None] for f in frames]
+        first = frames[0]
+    h, w, nchan = first.shape
+    has_alpha = nchan in (2, 4)
+    bits = 16 if first.dtype == np.uint16 else 8
+    scale = 65535.0 if bits == 16 else 255.0
+
+    meta = CodecMetadata()
+    meta.size.set(w, h)
+    meta.m.bit_depth = BitDepth.uint(bits)
+    meta.m.have_animation = True
+    meta.m.animation.tps_numerator = tps[0]
+    meta.m.animation.tps_denominator = tps[1]
+    meta.m.animation.num_loops = num_loops
+    if has_alpha:
+        meta.m.set_alpha_bits(bits)
+
+    writer = BitWriter()
+    ncolor = nchan - 1 if has_alpha else nchan
+    if lossless:
+        meta.m.xyb_encoded = False
+        meta.m.color_encoding = ColorEncoding.srgb(is_gray=(ncolor == 1))
+        write_codestream_headers(meta, writer)
+        from libjxl_tpu_torch.modular.codec import Transform, TransformId
+        for i, img in enumerate(frames):
+            channels = [img[:, :, c].astype(np.int32) for c in range(nchan)]
+            transforms = []
+            if ncolor >= 3:
+                transforms = [Transform(id=TransformId.RCT, begin_c=0,
+                                        rct_type=6)]
+            encode_modular_frame(channels, meta, writer,
+                                 transforms=transforms,
+                                 is_last=(i == len(frames) - 1),
+                                 duration=durations[i])
+    else:
+        meta.m.xyb_encoded = True
+        write_codestream_headers(meta, writer)
+        for i, img in enumerate(frames):
+            srgb = img[:, :, :min(ncolor, 3)].astype(np.float32) / scale
+            if ncolor == 1:
+                srgb = np.repeat(srgb, 3, axis=2)
+            xyb = linear_rgb_to_xyb(srgb_to_linear(srgb).transpose(2, 0, 1))
+            extra = [img[:, :, -1].astype(np.int32)] if has_alpha else None
+            from libjxl_tpu_torch.frame.frame_header import BlendMode
+            last = i == len(frames) - 1
+            bm = int(BlendMode.BLEND) if blend and i > 0 else None
+            # Blended animations chain through reference slot 1: every
+            # non-last frame stores there (CanBeReferenced needs
+            # save_as_reference != 0 for duration > 0 frames) and every
+            # blended frame reads its background from it.
+            encode_vardct_frame(xyb, meta, writer, distance=distance,
+                                is_last=last,
+                                extra_channels=extra,
+                                duration=durations[i],
+                                blend_mode=bm,
+                                blend_source=1 if bm is not None else 0,
+                                save_slot=1 if blend and not last
+                                else None)
+    writer.align_to_byte()
+    return writer.get_bytes()
+
+
+def encode_streaming(get_chunk, xsize: int, ysize: int, *,
+                     distance: float = 1.0, device=None) -> bytes:
+    """Chunked VarDCT encode with bounded pixel memory.
+
+    `get_chunk(x0, y0, w, h)` must return the (h, w, 3) uint8 (or
+    float [0,1]) sRGB tile; it is called once per 2048x2048 DC-group
+    chunk. Mirrors JxlEncoderAddChunkedFrame / the reference's
+    streaming encode mode (lib/jxl/enc_frame.cc:2047). The chunks are
+    encoded on the host, as in the reference; ``device`` (default
+    ``cuda``) is the torch device of the one-shot encode that a
+    single-group image takes instead."""
+    from libjxl_tpu_torch.frame.streaming_encode import (
+        encode_streaming as _impl)
+    return _impl(get_chunk, xsize, ysize, distance=distance, device=device)

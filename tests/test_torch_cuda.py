@@ -3,9 +3,11 @@ its plain PyTorch version (single frames, batches, custom loop-filter
 weights, the sharded step's halo-extended tiles), the decode on the
 card (single, batched, with post stages, the public
 ``decode``/``decode_all``, the sharded step on an NCCL rank, the v1 path
-and the v0 group decode) and the encoder (``encode`` and its stages)
-against the plain CPU path. They import neither jax nor the JAX
-package, so they run on a machine that has only the port:
+and the v0 group decode), the encoder (``encode`` and its stages), the
+command line (``cjxl``/``djxl``) and the rest of the encode API
+(``encode_streaming``, ``Encoder``) against the plain CPU path. They
+import neither jax nor the JAX package, so they run on a machine that
+has only the port:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -535,3 +537,58 @@ def test_v0_group_decode_on_card_matches_cpu(cuda_device):
         *decode_torch.example_inputs(device="cpu"))
     assert got.device.type == "cuda"
     assert (got.cpu() - ref).abs().max().item() <= 2e-4
+
+
+def _cli(main, *argv):
+    import contextlib
+    import io
+    with contextlib.redirect_stderr(io.StringIO()):
+        assert main([str(a) for a in argv]) == 0
+
+
+def test_cli_on_card(tmp_path, cuda_device):
+    """``cjxl`` on the card (the default device) against ``--device
+    cpu`` within the encoder's gates; ``djxl`` to ``.npy`` identical to
+    ``decode()`` on the card, through one EPF launch; ``--low-memory``
+    (host) within 1 LSB of it."""
+    from libjxl_tpu_torch.cli import cjxl, djxl
+    from libjxl_tpu_torch.extras import codecs
+    img = _photo(256)
+    (tmp_path / "in.ppm").write_bytes(codecs.encode_pnm(img))
+    _cli(cjxl.main, tmp_path / "in.ppm", tmp_path / "card.jxl", "-e", "5")
+    _cli(cjxl.main, tmp_path / "in.ppm", tmp_path / "cpu.jxl", "-e", "5",
+         "--device", "cpu")
+    card = (tmp_path / "card.jxl").read_bytes()
+    cpu = (tmp_path / "cpu.jxl").read_bytes()
+    assert abs(len(card) - len(cpu)) <= max(8, 0.01 * len(cpu))
+    px = libjxl_tpu_torch.decode(card).pixels
+    pp = libjxl_tpu_torch.decode(cpu).pixels
+    assert np.abs(px.astype(np.int64) - pp).max() <= 2
+    before = epf_cuda.launches
+    _cli(djxl.main, tmp_path / "card.jxl", tmp_path / "card.npy")
+    assert epf_cuda.launches - before == 1
+    np.testing.assert_array_equal(np.load(tmp_path / "card.npy"), px)
+    _cli(djxl.main, tmp_path / "card.jxl", tmp_path / "lm.ppm",
+         "--low-memory")
+    lm = codecs.load_image(str(tmp_path / "lm.ppm")).pixels
+    assert np.abs(lm.astype(np.int64) - px).max() <= 1
+
+
+def test_encode_api_on_card(cuda_device):
+    """A single-group ``encode_streaming`` and ``Encoder`` on the card:
+    byte for byte ``encode`` on the card with the same settings; a
+    two-chunk stream (host) equal to its CPU run."""
+    from libjxl_tpu_torch.api import encode_streaming
+    from libjxl_tpu_torch.api.encoder import Encoder, FrameSettings
+    img = _photo(256)
+    one = encode_streaming(lambda x0, y0, w, h: img[y0:y0 + h, x0:x0 + w],
+                           256, 256, distance=1.0)
+    assert one == libjxl_tpu_torch.encode(img, distance=1.0)
+    enc = Encoder(device="cuda")
+    enc.add_image_frame(img, FrameSettings(distance=2.0, effort=5))
+    assert enc.process_output() == libjxl_tpu_torch.encode(
+        img, distance=2.0, effort=5)
+    strip = np.ascontiguousarray(np.tile(img, (1, 10, 1))[:, :2300])
+    get = lambda x0, y0, w, h: strip[y0:y0 + h, x0:x0 + w]  # noqa: E731
+    assert encode_streaming(get, 2300, 256) == \
+        encode_streaming(get, 2300, 256, device="cpu")

@@ -162,7 +162,22 @@ API_MODULES = ["libjxl_tpu_torch.api", "libjxl_tpu_torch.api.simple",
                # decode and the entry points.
                "libjxl_tpu_torch.parallel.sharded_decode",
                "libjxl_tpu_torch.parallel.ranks",
-               "libjxl_tpu_torch.entry"]
+               "libjxl_tpu_torch.entry",
+               # The command line and the rest of the encode API, with
+               # the low-memory decode and JPEG transcoding they use.
+               "libjxl_tpu_torch.cli",
+               "libjxl_tpu_torch.cli.cjxl",
+               "libjxl_tpu_torch.cli.djxl",
+               "libjxl_tpu_torch.api.encoder",
+               "libjxl_tpu_torch.frame.aux_out",
+               "libjxl_tpu_torch.frame.incremental",
+               "libjxl_tpu_torch.frame.low_memory",
+               "libjxl_tpu_torch.frame.streaming_encode",
+               "libjxl_tpu_torch.extras.codecs",
+               "libjxl_tpu_torch.extras.jpeg_parser",
+               "libjxl_tpu_torch.extras.jpeg_writer",
+               "libjxl_tpu_torch.extras.jbrd",
+               "libjxl_tpu_torch.extras.jpeg_transcode"]
 
 
 @pytest.mark.parametrize("name", API_MODULES)

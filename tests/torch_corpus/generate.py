@@ -3,7 +3,7 @@ public decode API with the JAX package's host encoder. A data tool, not
 part of the port (it imports ``libjxl_tpu``); pytest does not collect
 it.
 
-    python tests/torch_corpus/generate.py [up2|splines|patches|anim|spot]
+    python tests/torch_corpus/generate.py [up2|splines|patches|anim|spot|jpeg]
     python tests/torch_corpus/generate.py corpus-sizes
 
 - ``4k_hdr_pq_d2_e5_up2_iso3200_epf3.jxl``: the content of
@@ -26,6 +26,11 @@ it.
 - ``1024x768_spot2_lossless.jxl``: a lossless 1024x768 8-bit image with
   two spot-colour extra channels, as ``tests/test_device_stages.py``
   builds its spot stream, at this size.
+- ``1024x768_photo_q85_420.jpg``: ``photo_image()`` (smooth bands and
+  light noise, 8-bit RGB) written by PIL as a baseline JPEG at quality
+  85 with 4:2:0 chroma subsampling: the input of the JPEG transcode
+  and reconstruction checks (``python tests/torch_corpus/generate.py
+  jpeg``; PIL only, no encoder of the repo).
 
 The generation is deterministic (fixed seeds and encoder settings).
 
@@ -54,6 +59,7 @@ SPLINES = "1080p_splines_d1.jxl"
 PATCHES = "1080p_screen_patches_d1_e7.jxl"
 ANIM = "720p_anim4_rgba_blend_d1.jxl"
 SPOT = "1024x768_spot2_lossless.jxl"
+JPEG = "1024x768_photo_q85_420.jpg"
 
 
 def _bench_image(i: int) -> np.ndarray:
@@ -218,6 +224,29 @@ def encode_spot() -> None:
     _write(SPOT, encode(img, lossless=True, extra_channels=ecs), t0)
 
 
+def photo_image(h: int = 768, w: int = 1024, seed: int = 5) -> np.ndarray:
+    """Smooth colour bands with light noise, 8-bit RGB (the content of
+    bench.py's test photo)."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.clip(np.stack(
+        [0.5 + 0.3 * np.sin(x / 17 + c) * np.cos(y / 23)
+         + 0.1 * np.sin((x + y) / 41)
+         + rng.normal(0, 0.02, (h, w)) for c in range(3)], -1), 0, 1)
+    return (img * 255).astype(np.uint8)
+
+
+def write_jpeg() -> None:
+    import io
+
+    from PIL import Image
+    t0 = time.time()
+    buf = io.BytesIO()
+    Image.fromarray(photo_image()).save(buf, "JPEG", quality=85,
+                                        subsampling=2)
+    _write(JPEG, buf.getvalue(), t0)
+
+
 def corpus_sizes() -> None:
     from libjxl_tpu.api.simple import encode
     img16 = _bench_image(0)
@@ -239,7 +268,8 @@ def main() -> None:
     for name in which:
         {"up2": encode_up2, "splines": encode_splines,
          "patches": encode_patches, "anim": encode_anim,
-         "spot": encode_spot, "corpus-sizes": corpus_sizes}[name]()
+         "spot": encode_spot, "jpeg": write_jpeg,
+         "corpus-sizes": corpus_sizes}[name]()
 
 
 if __name__ == "__main__":
