@@ -37,8 +37,19 @@ a 4K corpus stream to a 16-bit PNG in a fresh process and ``djxl`` to
 committed JPEG transcoded by ``cjxl`` and reconstructed by ``djxl`` byte
 for byte; ``encode_streaming`` (two chunks on the host, and one
 single-group image on the card) and ``Encoder`` on the card, each byte
-for byte its reference run. The phase runs with PIL made unimportable,
-as on a machine without it.
+for byte its reference run. Last, the rest of the JAX package's tools
+(``tools_path``) on bench.py's photo: ``benchmark_xl`` with its JPEG XL
+encode and decode on the card (a warm-up, a timed run with the metrics,
+then ``--device cpu``), held to the encoder's gates against the CPU;
+the event-driven ``Decoder`` (host) over the card's progressive stream
+in 64 KiB chunks, within 1 LSB of ``decode()`` on the card;
+``jxlinfo`` of the 720p animation and the 1080p stream; ``jxltran
+--pack`` and ``--strip`` back to the same codestream; the two metric
+tools against the metric functions; ``hdr_tools tone_map`` of the 4K
+PQ16 array ``djxl`` wrote; ``fast_lossless_encode`` decoded back
+exactly; and the system libjxl's decode of the card's stream where it
+is installed. These two phases run with PIL made unimportable, as on a
+machine without it.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-only
@@ -722,14 +733,15 @@ class NoPil:
         sys.modules.update(self.saved)
 
 
-def cli_path(torch, np, epf_cuda, smi):
+def cli_path(torch, np, epf_cuda, smi, tmp):
     """The port's command line and the rest of its encode API at full
     size, with the default device (the card) unless a step names the
-    CPU. Returns the EPF launches of the in-process runs (counted from
-    0 just before them); the fresh process's launch is its own."""
+    CPU. Writes its files into the directory ``tmp``, where
+    ``tools_path`` reads the photo's PPM and the 4K ``.npy``. Returns the
+    EPF launches of the in-process runs (counted from 0 just before
+    them); the fresh process's launch is its own."""
     import contextlib
     import io
-    import tempfile
 
     import libjxl_tpu_torch
     from libjxl_tpu_torch.api import encode_streaming
@@ -762,79 +774,80 @@ def cli_path(torch, np, epf_cuda, smi):
     jpeg_path = os.path.join(POST_CORPUS, FILE_JPEG)
     ms, checks = {}, {}
     epf_cuda.launches = 0
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
-        def p(name):
-            return os.path.join(tmp, name)
-        with open(p("photo.ppm"), "wb") as f:
-            f.write(codecs.encode_pnm(photo))
 
-        # 1. cjxl on the card and on the CPU, held to the encoder gates.
-        ms["cjxl_card"] = run(cjxl.main, p("photo.ppm"), p("card.jxl"),
-                              "-d", "1", "-e", "5")
-        ms["cjxl_cpu"] = run(cjxl.main, p("photo.ppm"), p("cpu.jxl"),
-                             "-d", "1", "-e", "5", "--device", "cpu")
-        card_s, cpu_s = slurp(p("card.jxl")), slurp(p("cpu.jxl"))
-        dec_card = libjxl_tpu_torch.decode(card_s).pixels
-        checks["cjxl"] = {
-            "card_bytes": len(card_s), "cpu_bytes": len(cpu_s),
-            "byte_identical": card_s == cpu_s,
-            "max_lsb_diff": lsb(dec_card,
-                                libjxl_tpu_torch.decode(cpu_s).pixels),
-            "mean_abs_err_vs_source": float(np.abs(
-                dec_card.astype(np.float64) - photo).mean())}
-        c = checks["cjxl"]
-        if not (abs(c["card_bytes"] - c["cpu_bytes"])
-                <= max(8, 0.01 * c["cpu_bytes"])
-                and c["max_lsb_diff"] <= ENC_LSB_TOL):
-            raise AssertionError(f"cjxl card vs CPU: {c}")
+    def p(name):
+        return os.path.join(tmp, name)
 
-        # 2. djxl: the module entry in a fresh process (builds or loads
-        # the kernel on first use there), then in process.
-        t = time.perf_counter()
-        sub = subprocess.run(
-            [sys.executable, "-m", "libjxl_tpu_torch.cli.djxl", hdr_path,
-             p("hdr.png")], cwd=ROOT, capture_output=True, text=True,
-            env=dict(os.environ, PYTHONPATH=ROOT), timeout=300)
-        ms["djxl_4k_png_process"] = (time.perf_counter() - t) * 1e3
-        if sub.returncode != 0:
-            raise AssertionError(f"djxl process: exit {sub.returncode}: "
-                                 f"{sub.stderr[-3000:]}")
-        hdr_px = libjxl_tpu_torch.decode(read(FILES_4K[0])).pixels
-        png_px = read_png16(np, slurp(p("hdr.png")))
-        before = epf_cuda.launches
-        ms["djxl_4k_npy"] = run(djxl.main, hdr_path, p("hdr.npy"))
-        npy_launches = epf_cuda.launches - before
-        checks["djxl"] = {
-            "dtype": str(hdr_px.dtype), "shape": list(hdr_px.shape),
-            "png_max_code_diff": lsb(png_px, hdr_px),
-            "npy_max_code_diff": lsb(np.load(p("hdr.npy")), hdr_px),
-            "npy_epf_launches": npy_launches}
-        c = checks["djxl"]
-        if not (hdr_px.dtype == np.uint16 and hdr_px.shape == (2160, 3840, 3)
-                and c["png_max_code_diff"] == 0
-                and c["npy_max_code_diff"] == 0 and npy_launches == 1):
-            raise AssertionError(f"djxl vs decode(): {c}")
-        ms["djxl_low_memory_ppm"] = run(djxl.main, p("card.jxl"),
-                                        p("lm.ppm"), "--low-memory")
-        ms["djxl_ppm"] = run(djxl.main, p("card.jxl"), p("full.ppm"))
-        lm = codecs.load_image(p("lm.ppm")).pixels
-        full = codecs.load_image(p("full.ppm")).pixels
-        checks["low_memory"] = {"max_lsb_diff": lsb(lm, full),
-                                "dtype": str(lm.dtype)}
-        if not (lm.dtype == np.uint8 and lsb(lm, full) <= LSB8_TOL
-                and lsb(full, dec_card) == 0):
-            raise AssertionError(f"low-memory vs djxl: {checks}")
+    with open(p("photo.ppm"), "wb") as f:
+        f.write(codecs.encode_pnm(photo))
 
-        # 3. JPEG: coefficient transcode and reconstruction (host).
-        jpeg = slurp(jpeg_path)
-        ms["cjxl_jpeg"] = run(cjxl.main, jpeg_path, p("jpeg.jxl"))
-        ms["djxl_jpeg"] = run(djxl.main, p("jpeg.jxl"), p("rec.jpg"))
-        rec = slurp(p("rec.jpg"))
-        checks["jpeg"] = {"jpeg_bytes": len(jpeg),
-                          "jxl_bytes": os.path.getsize(p("jpeg.jxl")),
-                          "byte_exact": rec == jpeg}
-        if rec != jpeg:
-            raise AssertionError(f"JPEG reconstruction: {checks['jpeg']}")
+    # 1. cjxl on the card and on the CPU, held to the encoder gates.
+    ms["cjxl_card"] = run(cjxl.main, p("photo.ppm"), p("card.jxl"),
+                          "-d", "1", "-e", "5")
+    ms["cjxl_cpu"] = run(cjxl.main, p("photo.ppm"), p("cpu.jxl"),
+                         "-d", "1", "-e", "5", "--device", "cpu")
+    card_s, cpu_s = slurp(p("card.jxl")), slurp(p("cpu.jxl"))
+    dec_card = libjxl_tpu_torch.decode(card_s).pixels
+    checks["cjxl"] = {
+        "card_bytes": len(card_s), "cpu_bytes": len(cpu_s),
+        "byte_identical": card_s == cpu_s,
+        "max_lsb_diff": lsb(dec_card,
+                            libjxl_tpu_torch.decode(cpu_s).pixels),
+        "mean_abs_err_vs_source": float(np.abs(
+            dec_card.astype(np.float64) - photo).mean())}
+    c = checks["cjxl"]
+    if not (abs(c["card_bytes"] - c["cpu_bytes"])
+            <= max(8, 0.01 * c["cpu_bytes"])
+            and c["max_lsb_diff"] <= ENC_LSB_TOL):
+        raise AssertionError(f"cjxl card vs CPU: {c}")
+
+    # 2. djxl: the module entry in a fresh process (builds or loads
+    # the kernel on first use there), then in process.
+    t = time.perf_counter()
+    sub = subprocess.run(
+        [sys.executable, "-m", "libjxl_tpu_torch.cli.djxl", hdr_path,
+         p("hdr.png")], cwd=ROOT, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=ROOT), timeout=300)
+    ms["djxl_4k_png_process"] = (time.perf_counter() - t) * 1e3
+    if sub.returncode != 0:
+        raise AssertionError(f"djxl process: exit {sub.returncode}: "
+                             f"{sub.stderr[-3000:]}")
+    hdr_px = libjxl_tpu_torch.decode(read(FILES_4K[0])).pixels
+    png_px = read_png16(np, slurp(p("hdr.png")))
+    before = epf_cuda.launches
+    ms["djxl_4k_npy"] = run(djxl.main, hdr_path, p("hdr.npy"))
+    npy_launches = epf_cuda.launches - before
+    checks["djxl"] = {
+        "dtype": str(hdr_px.dtype), "shape": list(hdr_px.shape),
+        "png_max_code_diff": lsb(png_px, hdr_px),
+        "npy_max_code_diff": lsb(np.load(p("hdr.npy")), hdr_px),
+        "npy_epf_launches": npy_launches}
+    c = checks["djxl"]
+    if not (hdr_px.dtype == np.uint16 and hdr_px.shape == (2160, 3840, 3)
+            and c["png_max_code_diff"] == 0
+            and c["npy_max_code_diff"] == 0 and npy_launches == 1):
+        raise AssertionError(f"djxl vs decode(): {c}")
+    ms["djxl_low_memory_ppm"] = run(djxl.main, p("card.jxl"),
+                                    p("lm.ppm"), "--low-memory")
+    ms["djxl_ppm"] = run(djxl.main, p("card.jxl"), p("full.ppm"))
+    lm = codecs.load_image(p("lm.ppm")).pixels
+    full = codecs.load_image(p("full.ppm")).pixels
+    checks["low_memory"] = {"max_lsb_diff": lsb(lm, full),
+                            "dtype": str(lm.dtype)}
+    if not (lm.dtype == np.uint8 and lsb(lm, full) <= LSB8_TOL
+            and lsb(full, dec_card) == 0):
+        raise AssertionError(f"low-memory vs djxl: {checks}")
+
+    # 3. JPEG: coefficient transcode and reconstruction (host).
+    jpeg = slurp(jpeg_path)
+    ms["cjxl_jpeg"] = run(cjxl.main, jpeg_path, p("jpeg.jxl"))
+    ms["djxl_jpeg"] = run(djxl.main, p("jpeg.jxl"), p("rec.jpg"))
+    rec = slurp(p("rec.jpg"))
+    checks["jpeg"] = {"jpeg_bytes": len(jpeg),
+                      "jxl_bytes": os.path.getsize(p("jpeg.jxl")),
+                      "byte_exact": rec == jpeg}
+    if rec != jpeg:
+        raise AssertionError(f"JPEG reconstruction: {checks['jpeg']}")
 
     # 4. The encode API: two chunks on the host, one single-group image
     # and the Encoder on the card.
@@ -892,6 +905,237 @@ def cli_path(torch, np, epf_cuda, smi):
         raise AssertionError(f"cli_path: {launches} EPF launches, not 6")
     emit({"phase": "cli_path", "card": smi, "epf_launches": launches,
           "wall_ms": ms, "checks": checks})
+    return launches
+
+
+# benchmark_xl's columns after the codec, in its order.
+BENCH_COLUMNS = ("bpp", "enc_mpix_s", "dec_mpix_s", "max_norm", "pnorm",
+                 "ssim2", "psnr")
+BENCH_SPECS = ("jxl:d1.0", "jxl:d1.0:p")
+DECODER_CHUNK = 64 * 1024
+# The event-driven decoder's events for one progressive frame, in the
+# reference's order (tests/test_torch_decoder.py holds the port to it).
+DECODER_EVENTS = re.compile(
+    r"BASIC_INFO COLOR_ENCODING FRAME( FRAME_PROGRESSION)+ FULL_IMAGE "
+    r"SUCCESS")
+TOOLS_LAUNCHES = 7      # benchmark_xl 2 + 2 + run_codec 2 + decode() 1
+
+
+def tools_path(torch, np, epf_cuda, smi, tmp):
+    """The rest of the JAX package's tools at the encoder cell's size
+    (bench.py's 1024x1024 photo), on the card unless a step names the
+    CPU: ``benchmark_xl`` (its JPEG XL encode and decode; a warm-up, a
+    timed run with the metrics, then ``--device cpu``), the event-driven
+    ``Decoder`` (host) on the card's progressive stream in 64 KiB chunks,
+    ``jxlinfo``, ``jxltran``, the two metric tools, ``hdr_tools
+    tone_map`` of the 4K PQ16 ``.npy`` that ``cli_path``'s ``djxl``
+    wrote into ``tmp``, ``fast_lossless_encode`` and the system libjxl
+    where it is installed. Returns the EPF launches (counted from 0 just
+    before the phase)."""
+    import contextlib
+    import io
+
+    import libjxl_tpu_torch
+    from libjxl_tpu_torch.api.decoder import Decoder, Event
+    from libjxl_tpu_torch.cli import (benchmark_xl, butteraugli_main,
+                                      hdr_tools, jxlinfo, jxltran,
+                                      ssimulacra2_main)
+    from libjxl_tpu_torch.extras import codecs, refjxl
+    from libjxl_tpu_torch.extras.fast_lossless import fast_lossless_encode
+    from libjxl_tpu_torch.metrics import ssimulacra2
+    from libjxl_tpu_torch.metrics.butteraugli import (butteraugli_distance,
+                                                      butteraugli_pnorm)
+
+    def lsb(a, b) -> int:
+        if a.shape != b.shape:
+            raise AssertionError(f"shapes {a.shape} and {b.shape}")
+        return int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+
+    def run(main, *argv):
+        """One tool run in process: (its standard output, wall ms)."""
+        out, err = io.StringIO(), io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main([str(a) for a in argv])
+        ms = (time.perf_counter() - t) * 1e3
+        if rc != 0:
+            raise AssertionError(f"{argv}: exit {rc}: {err.getvalue()}")
+        return out.getvalue(), ms
+
+    def rows(text) -> dict:
+        """benchmark_xl's rows: codec -> {column: value}."""
+        got = {}
+        for line in text.splitlines()[2:]:
+            cells = line.split()
+            got[cells[0]] = dict(zip(BENCH_COLUMNS, map(float, cells[1:])))
+        if set(got) != set(BENCH_SPECS):
+            raise AssertionError(f"benchmark_xl rows: {text}")
+        return got
+
+    def p(name):
+        return os.path.join(tmp, name)
+
+    photo = test_photo(ENC_SIZE, ENC_SIZE, seed=5)
+    npix = ENC_SIZE * ENC_SIZE
+    specs = ",".join(BENCH_SPECS)
+    ms, checks = {}, {}
+    epf_cuda.launches = 0
+
+    # 1-2. benchmark_xl: a warm-up, the timed run with the metrics, then
+    # the CPU; the card's streams and pixels against the CPU's, through
+    # the tool's run_codec.
+    run(benchmark_xl.main, "--input", p("photo.ppm"), "--codec", specs,
+        "--no_metrics", "--device", "cuda")
+    card_text, ms["benchmark_xl_card_metrics"] = run(
+        benchmark_xl.main, "--input", p("photo.ppm"), "--codec", specs,
+        "--device", "cuda")
+    cpu_text, ms["benchmark_xl_cpu_no_metrics"] = run(
+        benchmark_xl.main, "--input", p("photo.ppm"), "--codec", specs,
+        "--no_metrics", "--device", "cpu")
+    card_rows, cpu_rows = rows(card_text), rows(cpu_text)
+    streams = {}
+    for spec in BENCH_SPECS:
+        data, out, _, _ = benchmark_xl.run_codec(photo, spec, "cuda")
+        cpu_data, cpu_out, _, _ = benchmark_xl.run_codec(photo, spec, "cpu")
+        streams[spec] = (data, out)
+        row_bytes = card_rows[spec]["bpp"] * npix / 8
+        cpu_row_bytes = cpu_rows[spec]["bpp"] * npix / 8
+        checks[spec] = c = {
+            "card_bytes": len(data), "cpu_bytes": len(cpu_data),
+            "byte_identical": data == cpu_data,
+            "row_bytes_diff": abs(row_bytes - cpu_row_bytes),
+            "max_lsb_diff": lsb(out, cpu_out)}
+        if not (abs(len(data) - len(cpu_data))
+                <= max(8, 0.01 * len(cpu_data))
+                and c["row_bytes_diff"] <= max(8, 0.01 * cpu_row_bytes)
+                and c["max_lsb_diff"] <= ENC_LSB_TOL
+                and out.shape == photo.shape):
+            raise AssertionError(f"benchmark_xl {spec} card vs CPU: {c}")
+
+    # 3. The event-driven decoder (host) on the progressive stream.
+    pstream = streams["jxl:d1.0:p"][0]
+    dec = Decoder(events={Event.BASIC_INFO, Event.COLOR_ENCODING,
+                          Event.FRAME, Event.FRAME_PROGRESSION,
+                          Event.FULL_IMAGE})
+    seen, flushed = [], None
+    t = time.perf_counter()
+    for start in range(0, len(pstream), DECODER_CHUNK):
+        dec.set_input(pstream[start:start + DECODER_CHUNK])
+        if start + DECODER_CHUNK >= len(pstream):
+            dec.close_input()
+        for _ in range(1000):
+            ev = dec.process_input()
+            if ev == Event.NEED_MORE_INPUT:
+                break
+            seen.append(ev.name)
+            if ev == Event.FRAME_PROGRESSION and flushed is None:
+                flushed = dec.flush_image()
+            if ev in (Event.SUCCESS, Event.ERROR):
+                break
+    ms["decoder_64k_chunks"] = (time.perf_counter() - t) * 1e3
+    ref_px = libjxl_tpu_torch.decode(pstream, device="cuda").pixels
+    checks["decoder"] = c = {
+        "events": " ".join(seen), "chunks": -(-len(pstream)
+                                               // DECODER_CHUNK),
+        "flushed_shape": None if flushed is None else list(flushed.shape),
+        "max_lsb_diff_vs_decode": lsb(dec.image, ref_px)}
+    if not (DECODER_EVENTS.fullmatch(c["events"])
+            and c["flushed_shape"] == [ENC_SIZE, ENC_SIZE, 3]
+            and c["max_lsb_diff_vs_decode"] <= LSB8_TOL):
+        raise AssertionError(f"Decoder: {c}")
+
+    # 4. jxlinfo: the 720p animation and the 1080p corpus stream.
+    anim_text, ms["jxlinfo_720p_anim"] = run(
+        jxlinfo.main, os.path.join(POST_CORPUS, FILE_ANIM))
+    hd_text, ms["jxlinfo_1080p"] = run(jxlinfo.main,
+                                       os.path.join(CORPUS, FILE_1080P))
+    checks["jxlinfo"] = c = {
+        "anim_frames": anim_text.count("\nframe "),
+        "anim_dimensions": "dimensions: 1280x720" in anim_text,
+        "hd_dimensions": "dimensions: 1920x1080" in hd_text,
+        "hd_frames": hd_text.count("\nframe "),
+        "walk_stopped": "frame walk stopped" in anim_text + hd_text}
+    if not (c["anim_frames"] == 4 and c["hd_frames"] == 1
+            and c["anim_dimensions"] and c["hd_dimensions"]
+            and not c["walk_stopped"]):
+        raise AssertionError(f"jxlinfo: {c}\n{anim_text}\n{hd_text}")
+
+    # 5. jxltran: pack the card's stream into a container, strip it back.
+    with open(p("d1.jxl"), "wb") as f:
+        f.write(streams["jxl:d1.0"][0])
+    _, ms["jxltran_pack"] = run(jxltran.main, p("d1.jxl"), p("packed.jxl"),
+                                "--pack")
+    _, ms["jxltran_strip"] = run(jxltran.main, p("packed.jxl"),
+                                 p("stripped.jxl"), "--strip")
+    with open(p("stripped.jxl"), "rb") as f:
+        stripped = f.read()
+    checks["jxltran"] = {"container_bytes": os.path.getsize(p("packed.jxl")),
+                         "round_trip_exact": stripped == streams[
+                             "jxl:d1.0"][0]}
+    if not checks["jxltran"]["round_trip_exact"]:
+        raise AssertionError(f"jxltran: {checks['jxltran']}")
+
+    # 6. The metric tools on the photo and its card decode print the
+    # metric functions' values.
+    card_out = streams["jxl:d1.0"][1]
+    with open(p("d1.ppm"), "wb") as f:
+        f.write(codecs.encode_pnm(card_out))
+    s2_text, ms["ssimulacra2_main"] = run(ssimulacra2_main.main,
+                                          p("photo.ppm"), p("d1.ppm"))
+    ba_text, ms["butteraugli_main"] = run(
+        butteraugli_main.main, p("photo.ppm"), p("d1.ppm"), "--pnorm", "3")
+    s2 = ssimulacra2(photo, card_out)
+    dist, dmap = butteraugli_distance(photo, card_out, intensity_target=80.0,
+                                      return_diffmap=True)
+    pn = butteraugli_pnorm(dmap, 3.0)
+    checks["metric_tools"] = c = {
+        "ssimulacra2": s2, "butteraugli": dist, "pnorm_3": pn,
+        "ssimulacra2_printed": s2_text.strip(),
+        "butteraugli_printed": ba_text.strip().splitlines()}
+    if not (c["ssimulacra2_printed"] == f"{s2:.8f}"
+            and c["butteraugli_printed"] == [f"{dist:.8f}",
+                                             f"3.0-norm: {pn:.8f}"]):
+        raise AssertionError(f"metric tools: {c}")
+
+    # 7. hdr_tools tone_map of the 4K PQ16 array (host, float64).
+    _, ms["hdr_tools_tone_map_4k"] = run(hdr_tools.main, "tone_map",
+                                         p("hdr.npy"), p("sdr.npy"),
+                                         "-t", "100")
+    sdr = np.load(p("sdr.npy"))
+    checks["hdr_tools"] = c = {
+        "shape": list(sdr.shape), "dtype": str(sdr.dtype),
+        "finite": bool(np.isfinite(sdr).all()),
+        "min": float(sdr.min()), "max": float(sdr.max())}
+    if not (c["shape"] == [2160, 3840, 3] and c["finite"]
+            and 0.0 <= c["min"] <= c["max"] <= 1.0):
+        raise AssertionError(f"hdr_tools tone_map: {c}")
+
+    # 8. fast_lossless_encode (host), decoded back exactly.
+    t = time.perf_counter()
+    fl = fast_lossless_encode(photo)
+    ms["fast_lossless_encode"] = (time.perf_counter() - t) * 1e3
+    checks["fast_lossless"] = {
+        "bytes": len(fl), "exact": bool(np.array_equal(
+            libjxl_tpu_torch.decode(fl, device="cuda").pixels, photo))}
+    if not checks["fast_lossless"]["exact"]:
+        raise AssertionError(f"fast_lossless: {checks['fast_lossless']}")
+
+    # 9. The system libjxl, where installed: its decode of the card's
+    # stream within 1 LSB of the host's plus 1 of the card's.
+    checks["refjxl"] = {"available": refjxl.available()}
+    if refjxl.available():
+        theirs = refjxl.decode(streams["jxl:d1.0"][0], dtype="uint8").pixels
+        checks["refjxl"]["max_lsb_diff_vs_card"] = lsb(theirs, card_out)
+        if checks["refjxl"]["max_lsb_diff_vs_card"] > 2:
+            raise AssertionError(f"refjxl: {checks['refjxl']}")
+
+    launches = epf_cuda.launches
+    if launches != TOOLS_LAUNCHES:
+        raise AssertionError(f"tools_path: {launches} EPF launches, not "
+                             f"{TOOLS_LAUNCHES}")
+    emit({"phase": "tools_path", "card": smi, "epf_launches": launches,
+          "rows_card": card_rows, "rows_cpu": cpu_rows, "wall_ms": ms,
+          "checks": checks})
     return launches
 
 
@@ -1592,13 +1836,18 @@ def main(argv=None) -> int:
                                               smi)
     max_err = max(max_err, halo_row["max_abs_err"])
 
-    # ---- 10. command line and the rest of the encode API ----
-    _phase[0] = "cli_path"
-    torch.cuda.empty_cache()
-    with NoPil():                 # nothing of the phase may need PIL
-        cli_launches = cli_path(torch, np, epf_cuda, smi)
+    # ---- 10-11. command line, the rest of the encode API, the tools ----
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp, \
+            NoPil():              # nothing of the phases may need PIL
+        _phase[0] = "cli_path"
+        torch.cuda.empty_cache()
+        cli_launches = cli_path(torch, np, epf_cuda, smi, tmp)
+        _phase[0] = "tools_path"
+        torch.cuda.empty_cache()
+        tools_launches = tools_path(torch, np, epf_cuda, smi, tmp)
 
-    # ---- 11. kernels (the line before the last) ----
+    # ---- 12. kernels (the line before the last) ----
     _phase[0] = "kernels"
     emit({"phase": "done", "wall_s": time.monotonic() - t0})
     emit({"kernels": [{
@@ -1608,7 +1857,8 @@ def main(argv=None) -> int:
         "replaces": "libjxl_tpu/ops/epf_pallas.py:233",
         "launches": (main_launches + post_launches + e2e_launches
                      + batched_launches + api_launches
-                     + enc_launches + sharded_launches + cli_launches),
+                     + enc_launches + sharded_launches + cli_launches
+                     + tools_launches),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -27,7 +27,9 @@ numbers):
   pass it to the port's ``decode``/``encode`` (:556-558, :604-606);
 - ``encode_to_bytes`` writes 16-bit RGB(A) PNG with the in-tree writer
   before it imports PIL (:593-597), so that output needs no PIL. The
-  bytes are the reference's.
+  bytes are the reference's;
+- ``load_rgb8`` (new) reads the input of the metric and benchmark tools
+  without PIL for PNM and PFM.
 """
 
 from __future__ import annotations
@@ -630,6 +632,31 @@ def load_image(path: str, device=None) -> DecodedImage:
     if codec == "unknown":
         codec = codec_from_path(path)
     return decode_bytes(data, codec, device)
+
+
+def load_rgb8(path: str) -> np.ndarray:
+    """An image file as (H, W, 3) uint8 RGB, as the JAX package's metric
+    and benchmark tools read one (``Image.open(path).convert("RGB")``).
+    PNM and PFM go through ``decode_pnm`` and need no PIL: grey is
+    repeated, alpha dropped, samples of more than 8 bits scaled by
+    255 / (2^bits - 1) and float samples by 255, then rounded. Every other
+    format goes through PIL, as in the reference."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if detect_codec(data) != "pnm":
+        from PIL import Image
+        return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    img = decode_pnm(data)
+    px = img.pixels if img.pixels.ndim == 3 else img.pixels[:, :, None]
+    if px.shape[2] in (2, 4):
+        px = px[:, :, :-1]
+    if px.shape[2] == 1:
+        px = np.repeat(px, 3, axis=2)
+    if img.float_samples:
+        px = np.clip(np.round(px * 255.0), 0, 255)
+    elif px.dtype != np.uint8:
+        px = np.round(px * (255.0 / ((1 << img.bits_per_sample) - 1)))
+    return np.ascontiguousarray(px.astype(np.uint8))
 
 
 def save_image(arr: np.ndarray, path: str) -> None:

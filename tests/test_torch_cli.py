@@ -15,10 +15,15 @@ package's, on the same seeded numpy images:
   the reference's bytes and pixels;
 - no PIL on the card's paths: with ``sys.modules["PIL"] = None``,
   ``cjxl`` of a PPM and ``djxl`` to ``.npy``, PPM and 16-bit PNG run,
-  and ``djxl`` to ``out_%d.png`` raises ``ImportError``;
-- the default device is ``cuda``: without a card the lossy paths raise
-  the port's "no CUDA device" error, and the host-only paths (JPEG
-  transcode, lossless, ``--low-memory``, JPEG reconstruction) run."""
+  and ``djxl`` to ``out_%d.png`` raises ``ImportError``; so do the
+  other six tools, ``Decoder`` and ``fast_lossless_encode`` on PPM and
+  ``.npy`` inputs (their parity tests are tests/test_torch_tools.py and
+  tests/test_torch_metrics.py);
+- the default device is ``cuda``: without a card the lossy paths
+  (``benchmark_xl`` too) raise the port's "no CUDA device" error, and
+  the host-only paths (JPEG transcode, lossless, ``--low-memory``, JPEG
+  reconstruction, ``jxlinfo``, ``jxltran``, ``hdr_tools``, the metric
+  tools, ``Decoder``, ``fast_lossless_encode``) run."""
 
 import contextlib
 import io
@@ -305,10 +310,13 @@ def test_cli_needs_no_pil_for_pnm_npy_and_png16(files, tmp_path, no_pil):
 
 
 def test_cli_modules_import_no_pil():
-    """Importing the CLI and running ``--help`` loads no PIL."""
+    """Importing the eight tools and running ``--help`` loads no PIL."""
     code = ("import sys\n"
-            "from libjxl_tpu_torch.cli import cjxl, djxl\n"
-            "for m in (cjxl, djxl):\n"
+            "from libjxl_tpu_torch.cli import (\n"
+            "    benchmark_xl, butteraugli_main, cjxl, djxl, hdr_tools,\n"
+            "    jxlinfo, jxltran, ssimulacra2_main)\n"
+            "for m in (cjxl, djxl, jxlinfo, jxltran, benchmark_xl,\n"
+            "          butteraugli_main, ssimulacra2_main, hdr_tools):\n"
             "    try:\n"
             "        m.main(['--help'])\n"
             "    except SystemExit:\n"
@@ -321,6 +329,71 @@ def test_cli_modules_import_no_pil():
     assert res.stdout.decode().strip().endswith("False")
 
 
+def _tool_inputs(files, tmp_path):
+    """A distorted copy of the input PPM, and a seeded PQ ``.npy``."""
+    img = files["img"]
+    b = np.clip(img.astype(int) + 3, 0, 255).astype(np.uint8)
+    (tmp_path / "b.ppm").write_bytes(codecs.encode_pnm(b))
+    rng = np.random.default_rng(9)
+    np.save(tmp_path / "pq.npy",
+            rng.uniform(0.1, 0.7, (24, 32, 3)).astype(np.float32))
+    return files["ppm"], tmp_path / "b.ppm", tmp_path / "pq.npy"
+
+
+def _tools_run(files, tmp_path, device_args):
+    """The host tools on PPM and ``.npy`` inputs, and ``benchmark_xl``
+    with ``device_args``; each must exit 0 and print something."""
+    from libjxl_tpu_torch.api.decoder import Decoder, Event
+    from libjxl_tpu_torch.cli import (benchmark_xl, butteraugli_main,
+                                      hdr_tools, jxlinfo, jxltran,
+                                      ssimulacra2_main)
+    from libjxl_tpu_torch.extras.fast_lossless import fast_lossless_encode
+    a, b, pq = _tool_inputs(files, tmp_path)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _run(benchmark_xl.main, "--input", a, *device_args)
+        _run(butteraugli_main.main, a, b, "--pnorm", "3")
+        _run(ssimulacra2_main.main, a, b)
+        _run(jxlinfo.main, files["e5"])
+        _run(jxltran.main, files["e5"], tmp_path / "c.jxl", "--pack")
+        _run(jxltran.main, tmp_path / "c.jxl", tmp_path / "s.jxl")
+    assert _read(tmp_path / "s.jxl") == _read(files["e5"])
+    assert "dimensions: 232x200" in out.getvalue()
+    for cmd, dst in (("pq_to_hlg", "hlg.npy"), ("tone_map", "sdr.npy")):
+        _run(hdr_tools.main, cmd, pq, tmp_path / dst)
+    _run(hdr_tools.main, "render_hlg", tmp_path / "hlg.npy",
+         tmp_path / "r.npy")
+    assert np.load(tmp_path / "r.npy").shape == (24, 32, 3)
+    dec = Decoder(events={Event.FULL_IMAGE})
+    dec.set_input(_read(files["e5"]))
+    dec.close_input()
+    assert dec.process_input() == Event.FULL_IMAGE
+    assert _lsb(dec.image, libjxl_tpu_torch.decode(
+        _read(files["e5"]), device="cpu").pixels) <= 1
+    px = files["img"]
+    data = fast_lossless_encode(px)
+    np.testing.assert_array_equal(
+        libjxl_tpu_torch.decode(data, device="cpu").pixels, px)
+    return out.getvalue()
+
+
+def test_tools_need_no_pil_for_ppm_and_npy(files, tmp_path, no_pil):
+    """The six new tools, ``Decoder`` and ``fast_lossless_encode`` on PPM
+    and ``.npy`` inputs with PIL unimportable; ``benchmark_xl``'s PIL
+    comparison codecs and a PNG input raise ``ImportError``."""
+    from libjxl_tpu_torch.cli import benchmark_xl, ssimulacra2_main
+    text = _tools_run(files, tmp_path, ("--device", "cpu", "--codec",
+                                        "jxl:d1.0,jxl:lossless"))
+    assert "jxl:d1.0 " in text and "jxl:lossless " in text
+    with pytest.raises(ImportError):
+        benchmark_xl.main(["--input", str(files["ppm"]), "--codec", "png",
+                           "--device", "cpu"])
+    (tmp_path / "x.png").write_bytes(b"\x89PNG\r\n\x1a\n" + b"\x00" * 8)
+    with pytest.raises(ImportError):
+        ssimulacra2_main.main([str(tmp_path / "x.png"),
+                               str(tmp_path / "x.png")])
+
+
 # ------------------------------------------------------------ device
 
 @pytest.fixture
@@ -329,8 +402,9 @@ def no_card(monkeypatch):
 
 
 def test_default_device_raises_without_card(files, tmp_path, no_card):
-    """cjxl of a lossy PPM, djxl of a VarDCT stream and ``load_image`` of
-    a ``.jxl`` default to ``cuda`` and raise without a card."""
+    """cjxl of a lossy PPM, djxl of a VarDCT stream, ``load_image`` of
+    a ``.jxl`` and ``benchmark_xl`` of a lossy codec default to ``cuda``
+    and raise without a card."""
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cjxl.main([str(files["ppm"]), str(tmp_path / "x.jxl")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -339,6 +413,11 @@ def test_default_device_raises_without_card(files, tmp_path, no_card):
         djxl.main([str(files["e5"]), str(tmp_path / "x.ppm")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         codecs.load_image(str(files["e5"]))
+    from libjxl_tpu_torch.cli import benchmark_xl
+    for extra in ([], ["--device"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            benchmark_xl.main(["--input", str(files["ppm"]),
+                               "--no_metrics", *extra])
 
 
 def test_host_only_paths_run_without_card(files, tmp_path, no_card):
@@ -353,6 +432,14 @@ def test_host_only_paths_run_without_card(files, tmp_path, no_card):
     _run(djxl.main, files["e5"], tmp_path / "lm.ppm", "--low-memory")
     assert codecs.load_image(str(tmp_path / "lm.ppm")).pixels.shape == \
         files["img"].shape
+
+
+def test_host_tools_run_without_card(files, tmp_path, no_card):
+    """``jxlinfo``, ``jxltran``, ``hdr_tools``, the metric tools,
+    ``Decoder``, ``fast_lossless_encode`` and ``benchmark_xl
+    jxl:lossless`` (the default device given) need no card."""
+    text = _tools_run(files, tmp_path, ("--codec", "jxl:lossless"))
+    assert "jxl:lossless " in text
 
 
 def test_djxl_module_entry_runs_in_a_fresh_process(files, tmp_path):

@@ -4,8 +4,10 @@ weights, the sharded step's halo-extended tiles), the decode on the
 card (single, batched, with post stages, the public
 ``decode``/``decode_all``, the sharded step on an NCCL rank, the v1 path
 and the v0 group decode), the encoder (``encode`` and its stages), the
-command line (``cjxl``/``djxl``) and the rest of the encode API
-(``encode_streaming``, ``Encoder``) against the plain CPU path. They
+command line (``cjxl``/``djxl``, ``benchmark_xl``), the rest of the
+encode API (``encode_streaming``, ``Encoder``) and the event-driven
+``Decoder`` over a stream the card encoded, against the plain CPU path.
+They
 import neither jax nor the JAX package, so they run on a machine that
 has only the port:
 
@@ -592,3 +594,56 @@ def test_encode_api_on_card(cuda_device):
     get = lambda x0, y0, w, h: strip[y0:y0 + h, x0:x0 + w]  # noqa: E731
     assert encode_streaming(get, 2300, 256) == \
         encode_streaming(get, 2300, 256, device="cpu")
+
+
+def test_benchmark_xl_on_card(tmp_path, cuda_device):
+    """``benchmark_xl``'s JPEG XL codecs on the card against ``--device
+    cpu`` through its ``run_codec``: bytes within max(8 B, 1%), pixels
+    within 2 LSB (the encoder's gates); the tool itself runs on the card
+    by default."""
+    import contextlib
+    import io
+
+    from libjxl_tpu_torch.cli import benchmark_xl
+    from libjxl_tpu_torch.extras import codecs
+    img = _photo(256)
+    for spec in ("jxl:d1.0", "jxl:d1.0:p"):
+        before = epf_cuda.launches
+        card, pc, _, _ = benchmark_xl.run_codec(img, spec)
+        assert epf_cuda.launches - before == 1
+        cpu, pp, _, _ = benchmark_xl.run_codec(img, spec, "cpu")
+        assert abs(len(card) - len(cpu)) <= max(8, 0.01 * len(cpu))
+        assert pc.shape == img.shape
+        assert np.abs(pc.astype(np.int64) - pp).max() <= 2
+    (tmp_path / "in.ppm").write_bytes(codecs.encode_pnm(img))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert benchmark_xl.main(["--input", str(tmp_path / "in.ppm"),
+                                  "--codec", "jxl:d1.0",
+                                  "--no_metrics"]) == 0
+    assert out.getvalue().splitlines()[-1].startswith("jxl:d1.0 ")
+
+
+def test_decoder_over_card_stream(cuda_device):
+    """The event-driven ``Decoder`` (host) over a progressive stream the
+    card encoded, in 4 KiB chunks: the image within 1 LSB of ``decode``
+    on the card, and a partial image before the end."""
+    from libjxl_tpu_torch.api.decoder import Decoder, Event
+    img = _photo(256)
+    data = libjxl_tpu_torch.encode(img, distance=1.0, progressive=True)
+    dec = Decoder(events={Event.FULL_IMAGE, Event.FRAME_PROGRESSION})
+    flushed, ev = None, None
+    for start in range(0, len(data), 4096):
+        dec.set_input(data[start:start + 4096])
+        if start + 4096 >= len(data):
+            dec.close_input()
+        while True:
+            ev = dec.process_input()
+            if ev == Event.FRAME_PROGRESSION and flushed is None:
+                flushed = dec.flush_image()
+            if ev in (Event.NEED_MORE_INPUT, Event.SUCCESS, Event.ERROR):
+                break
+    assert ev == Event.SUCCESS
+    assert flushed is not None and flushed.shape == img.shape
+    px = libjxl_tpu_torch.decode(data).pixels
+    assert np.abs(dec.image.astype(np.int64) - px).max() <= 1

@@ -1,9 +1,10 @@
 """The port stands alone: importing every module of libjxl_tpu_torch,
 decoding a frame on the CPU (``decode_device``, ``decode``,
-``decode_all``) and encoding one (``encode``) loads neither ``jax`` nor
-anything of ``libjxl_tpu``, nor does the sharded dry run in its parent
-or in any of its rank processes, and no port source (or chip_smoke.py)
-imports them."""
+``decode_all``, the event-driven ``Decoder``), encoding one (``encode``,
+``fast_lossless_encode``) and running ``benchmark_xl --device cpu``
+loads neither ``jax`` nor anything of ``libjxl_tpu``, nor does the
+sharded dry run in its parent or in any of its rank processes, and no
+port source (or chip_smoke.py) imports them."""
 
 import os
 import re
@@ -36,6 +37,24 @@ img = (np.random.default_rng(1).uniform(0, 1, (48, 40, 3)) * 255).astype(
     np.uint8)
 enc = libjxl_tpu_torch.encode(img, distance=1.0, effort=7, device="cpu")
 assert libjxl_tpu_torch.decode(enc, device="cpu").pixels.shape == (48, 40, 3)
+from libjxl_tpu_torch.api.decoder import Decoder, Event
+dec = Decoder(events={Event.FULL_IMAGE})
+dec.set_input(data)
+dec.close_input()
+assert dec.process_input() == Event.FULL_IMAGE
+assert dec.image.shape == (64, 80, 3)
+from libjxl_tpu_torch.extras.fast_lossless import fast_lossless_encode
+ll = fast_lossless_encode(img)
+assert (libjxl_tpu_torch.decode(ll, device="cpu").pixels == img).all()
+import os, tempfile
+from libjxl_tpu_torch.cli import benchmark_xl
+from libjxl_tpu_torch.extras.codecs import encode_pnm
+with tempfile.TemporaryDirectory() as tmp:
+    with open(os.path.join(tmp, "a.ppm"), "wb") as f:
+        f.write(encode_pnm(img))
+    assert benchmark_xl.main(["--input", os.path.join(tmp, "*.ppm"),
+                              "--codec", "jxl:d1.0,jxl:lossless",
+                              "--device", "cpu", "--no_metrics"]) == 0
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "libjxl_tpu" or n.startswith("libjxl_tpu."))
@@ -177,7 +196,23 @@ API_MODULES = ["libjxl_tpu_torch.api", "libjxl_tpu_torch.api.simple",
                "libjxl_tpu_torch.extras.jpeg_parser",
                "libjxl_tpu_torch.extras.jpeg_writer",
                "libjxl_tpu_torch.extras.jbrd",
-               "libjxl_tpu_torch.extras.jpeg_transcode"]
+               "libjxl_tpu_torch.extras.jpeg_transcode",
+               # The rest of the JAX package: the event-driven decoder,
+               # the extras API, the metrics, the libjxl oracle, the
+               # fast-lossless encoder and the six other tools.
+               "libjxl_tpu_torch.api.decoder",
+               "libjxl_tpu_torch.api.extras_api",
+               "libjxl_tpu_torch.metrics.simple",
+               "libjxl_tpu_torch.metrics.ssimulacra2",
+               "libjxl_tpu_torch.metrics.ssimulacra2_weights",
+               "libjxl_tpu_torch.extras.refjxl",
+               "libjxl_tpu_torch.extras.fast_lossless",
+               "libjxl_tpu_torch.cli.jxlinfo",
+               "libjxl_tpu_torch.cli.jxltran",
+               "libjxl_tpu_torch.cli.benchmark_xl",
+               "libjxl_tpu_torch.cli.butteraugli_main",
+               "libjxl_tpu_torch.cli.ssimulacra2_main",
+               "libjxl_tpu_torch.cli.hdr_tools"]
 
 
 @pytest.mark.parametrize("name", API_MODULES)
