@@ -52,7 +52,7 @@ is installed. These two phases run with PIL made unimportable, as on a
 machine without it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernel-only
+    python3 chip_smoke.py --kernel-only [--baseline SRC]
 
 Prints one JSON line per phase, the card's name and power limit as
 nvidia-smi gives them, a ``kernels`` line, and as its last line
@@ -61,9 +61,19 @@ there is no CUDA device, when any phase fails, or when the run exceeds
 its time budget.
 
 ``--kernel-only`` builds only the kernel, runs the kernel-vs-plain phase
-and times the kernel on synthetic frames (a 4K frame and a batch of
-three 1080p frames), and ends with a ``kernel_only_done`` line instead
-of the ``ok`` line.
+and times the kernel on synthetic frames (a 4K frame, a batch of three
+1080p frames and the sharded step's halo-extended batch of three
+2160x3856 frames) and each of its seven instances on the 4K frame, and
+ends with a ``kernel_only_done`` line instead of the ``ok`` line. With
+``--baseline SRC`` it also builds SRC, another version of csrc/epf.cu
+(for example the parent commit's, from ``git show``, in the git-ignored
+``libjxl_tpu_torch/_build/``), holds it bit for bit against the kernel
+and times the two in turns in the same call:
+
+    git show HEAD:libjxl_tpu_torch/csrc/epf.cu \
+        > libjxl_tpu_torch/_build/epf_parent.cu
+    python3 chip_smoke.py --kernel-only \
+        --baseline libjxl_tpu_torch/_build/epf_parent.cu
 """
 
 from __future__ import annotations
@@ -1346,13 +1356,45 @@ def sharded_path(torch, np, epf_cuda, filters, smi):
     return kernel_row, 1 + v1_launches
 
 
-def kernel_only_timing(torch, np, epf_cuda, dev, rng, smi):
-    """The kernel (gaborish + three passes) on a synthetic 4K frame and a
-    synthetic batch of three 1080p frames with one map each, against its
-    bound."""
+def bits_equal(torch, a, b) -> bool:
+    """Whether two float32 tensors hold the same bits (-0 is not +0)."""
+    torch.cuda.synchronize()
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def load_baseline(epf_cuda, src: str):
+    """Build another version of csrc/epf.cu (same flags, same C
+    interface) into _build/ and bind it; returns (library, nvcc's
+    messages). A measurement aid for --baseline: the port never calls
+    it."""
+    import ctypes
+
+    from libjxl_tpu_torch.native.build import BUILD_DIR, build_locked
+    lib_path = os.path.join(BUILD_DIR, "libjxl_epf_baseline.so")
+    log = build_locked(lib_path, src, [epf_cuda.nvcc()] +
+                       epf_cuda.NVCC_FLAGS + [src], force=True)
+    lib = ctypes.CDLL(lib_path)
+    lib.jxl_epf_launch.restype = ctypes.c_int
+    lib.jxl_epf_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+           ctypes.c_void_p]
+    return lib, log
+
+
+def kernel_only_timing(torch, np, epf_cuda, filters, dev, rng, smi,
+                       baseline=None):
+    """The kernel (gaborish + three passes) on a synthetic 4K frame, a
+    synthetic batch of three 1080p frames with one map each and the
+    sharded step's halo-extended batch of three (2160, 3856) frames with
+    one map each, against its bound; each of the seven instances on the
+    4K frame. With ``baseline`` (a library from load_baseline), that
+    kernel too, held bit for bit against this one and timed in turns
+    with it (baseline, this, this, baseline) in this call."""
+    import ctypes
     cases = {}
     for name, shape in (("4k", (3, 2160, 3840)),
-                        ("batch_3x1080p", (3, 3, 1080, 1920))):
+                        ("batch_3x1080p", (3, 3, 1080, 1920)),
+                        ("halo_batch_3x2160x3856", (3, 3, 2160, 3856))):
         h, w = shape[-2:]
         n = shape[0] if len(shape) == 4 else 1
         img = torch.from_numpy(rng.normal(0, 0.3, shape).astype(
@@ -1361,18 +1403,77 @@ def kernel_only_timing(torch, np, epf_cuda, dev, rng, smi):
         sig = torch.from_numpy(rng.uniform(-6.0, -0.05, maps).astype(
             np.float32)).to(dev)
         cases[name] = (img, sig, bound_ms(h, w, *maps[-2:], 3, True, n))
+    consts = epf_cuda.kernel_constants(
+        filters.DEFAULT_GAB_WEIGHTS, 0.9, 6.5, 2.0 / 3,
+        filters.DEFAULT_CHANNEL_SCALE)
 
-    def run(name):
+    def run(name, it=3, gab=True):
         img, sig, _ = cases[name]
-        return lambda: epf_cuda.apply_loop_filters(img, sig, epf_iters=3,
-                                                   gab=True)
+        return lambda: epf_cuda.apply_loop_filters(img, sig, epf_iters=it,
+                                                   gab=gab)
+
+    def run_baseline(name, img=None):
+        img_, sig, _ = cases[name]
+        img = img_ if img is None else img
+        out = torch.empty_like(img)
+        n = img.shape[0] if img.dim() == 4 else 1
+        h, w = img.shape[-2:]
+
+        def launch():
+            rc = baseline.jxl_epf_launch(
+                img.data_ptr(), sig.data_ptr(), out.data_ptr(), n, h, w,
+                (w + 7) // 8, 0 if sig.dim() == 2 else sig[0].numel(), 1, 3,
+                ctypes.addressof(consts),
+                torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"baseline kernel launch failed: {rc}")
+            return out
+        return launch
 
     row = {"phase": "kernel_timing", "card": smi, "synthetic": True}
     for name, (_, _, (b_ms, b_by, _, _)) in cases.items():
-        run(name)()                                    # warm-up
+        got = run(name)()                              # warm-up
         torch.cuda.synchronize()
-        row[name] = {"ms": cuda_ms(torch, run(name), 20), "bound_ms": b_ms,
-                     "bound_by": b_by}
+        row[name] = {"bound_ms": b_ms, "bound_by": b_by}
+        if baseline is None:
+            row[name]["ms"] = cuda_ms(torch, run(name), 20)
+            continue
+        same = bits_equal(torch, run_baseline(name)(), got)
+        if not same:
+            raise AssertionError(f"the kernel and the baseline differ on "
+                                 f"{name}")
+        times = {"baseline": [], "kernel": []}
+        for who in ("baseline", "kernel", "kernel", "baseline"):
+            times[who].append(cuda_ms(torch, run_baseline(name)
+                                      if who == "baseline" else run(name),
+                                      20))
+        row[name].update(ms=times["kernel"], baseline_ms=times["baseline"],
+                         identical_to_baseline=same)
+        del got
+    if baseline is not None:
+        # Bit for bit also where quotients are tiny, subnormal or zero:
+        # the 4K frame scaled down, and with a zero region and channel.
+        img = cases["4k"][0]
+        zeroed = img.clone()
+        zeroed[:, 100:900, 200:1500] = 0.0
+        zeroed[1] = -0.0
+        for label, x in (("x1e-28", img * 1e-28), ("x1e-33", img * 1e-33),
+                         ("x1e-38", img * 1e-38), ("zeros", zeroed)):
+            sig = cases["4k"][1]
+            if not bits_equal(torch, run_baseline("4k", x)(),
+                              epf_cuda.apply_loop_filters(
+                                  x, sig, epf_iters=3, gab=True)):
+                raise AssertionError(f"the kernel and the baseline differ "
+                                     f"on the 4K frame {label}")
+        row["identical_to_baseline_scaled_4k"] = ["x1e-28", "x1e-33",
+                                                  "x1e-38", "zeros"]
+        del zeroed, x
+    row["instances_4k_ms"] = {}
+    for it, gab in STAGES:
+        run("4k", it, gab)()
+        torch.cuda.synchronize()
+        row["instances_4k_ms"][f"gab{int(gab)}_iters{it}"] = cuda_ms(
+            torch, run("4k", it, gab), 20)
     emit(row)
 
 
@@ -1380,7 +1481,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernel-only", action="store_true",
                     help="build and check the kernel only, and time it")
+    ap.add_argument("--baseline", metavar="SRC",
+                    help="with --kernel-only: another version of "
+                         "csrc/epf.cu to hold bit for bit against the "
+                         "kernel and time beside it")
     args = ap.parse_args(argv)
+    if args.baseline and not args.kernel_only:
+        ap.error("--baseline needs --kernel-only")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA "
@@ -1422,6 +1529,9 @@ def main(argv=None) -> int:
     builds = {"epf": lambda: epf_cuda.build(force=True)}
     if not args.kernel_only:
         builds["native"] = lambda: native_build.build(force=True)
+    if args.baseline:
+        builds["baseline"] = lambda: load_baseline(
+            epf_cuda, os.path.abspath(args.baseline))
     jobs = [threading.Thread(target=timed, args=(name, fn))
             for name, fn in builds.items()]
     for j in jobs:
@@ -1439,6 +1549,9 @@ def main(argv=None) -> int:
           "seconds": {k: round(v[1], 2) for k, v in results.items()},
           "ptxas": ptxas_summary(results["epf"][0]),
           "occupancy": occupancy})
+    if args.baseline:
+        emit({"phase": "build_baseline", "source": args.baseline,
+              "ptxas": ptxas_summary(results["baseline"][0][1])})
 
     # ---- 2. kernel vs plain version on the card ----
     _phase[0] = "kernel_vs_plain"
@@ -1516,7 +1629,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     if args.kernel_only:
-        kernel_only_timing(torch, np, epf_cuda, dev, rng, smi)
+        kernel_only_timing(torch, np, epf_cuda, filters, dev, rng, smi,
+                           results["baseline"][0][0] if args.baseline
+                           else None)
         emit({"phase": "kernel_only_done", "card": smi,
               "max_abs_err": max_err, "wall_s": time.monotonic() - t0})
         return 0

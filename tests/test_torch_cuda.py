@@ -33,6 +33,10 @@ STAGES = [(it, gab) for it in (0, 1, 2, 3) for gab in (True, False)
 # Frames narrower or shorter than one tile, or than the halo: the
 # kernel's mirrored tables, sigma plane and field boxes meet both edges.
 EDGE_SHAPES = [(1, 1), (5, 3), (7, 300), (300, 7), (33, 9)]
+# Ragged for the kernel's strips of 8 rows (heights one below and one
+# above a multiple of 8) and for its 32 x 32 tile (heights and widths one
+# below and one above a multiple of 32).
+RAGGED_SHAPES = [(39, 70), (41, 70), (63, 95), (65, 97)]
 CORPUS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "bench_corpus")
 POST_CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -57,7 +61,7 @@ def _case(seed, h, w, device):
 
 
 @pytest.mark.parametrize("shape", [(96, 200), (61, 117), (2160, 3840)]
-                         + EDGE_SHAPES)
+                         + EDGE_SHAPES + RAGGED_SHAPES)
 @pytest.mark.parametrize("epf_iters,gab", STAGES)
 def test_kernel_matches_plain(epf_iters, gab, shape, cuda_device):
     x, s = _case(11, *shape, cuda_device)
@@ -72,14 +76,15 @@ def test_kernel_matches_plain(epf_iters, gab, shape, cuda_device):
 
 def test_kernel_occupancy(cuda_device):
     """Each of the seven instances launches with its shared memory; the
-    main path's (gaborish + three passes: two image buffers, six fields,
-    the sigma plane) keeps two blocks on an SM. No stage, no kernel."""
+    main path's (gaborish + three passes: two image buffers, six fields
+    of 42 rows and the sigma plane, all at a row stride of 49 words) keeps
+    two blocks of 256 threads on an SM. No stage, no kernel."""
     for it, gab in STAGES:
         occ = epf_cuda.occupancy(it, gab)
         assert occ["blocks_per_sm"] >= 1
         assert occ["shared_bytes"] <= 227 * 1024
     occ = epf_cuda.occupancy(3, True)
-    assert occ["shared_bytes"] == 101968 and occ["blocks_per_sm"] == 2
+    assert occ["shared_bytes"] == 112888 and occ["blocks_per_sm"] == 2
     with pytest.raises(RuntimeError):
         epf_cuda.occupancy(0, False)
 
@@ -130,7 +135,8 @@ def test_pipeline_on_card_matches_single_decodes(cuda_device):
 
 @pytest.mark.parametrize("n,shape,per_frame_map", [
     (3, (96, 200), True), (2, (61, 117), True), (3, (61, 117), False),
-    (2, (5, 3), True)])
+    (2, (5, 3), True), (2, (39, 97), True), (2, (41, 63), False),
+    (3, (65, 95), True)])
 @pytest.mark.parametrize("epf_iters,gab", [(3, True), (2, False),
                                            (1, True)])
 def test_batched_kernel_matches_plain(n, shape, per_frame_map, epf_iters,
