@@ -49,7 +49,30 @@ tools against the metric functions; ``hdr_tools tone_map`` of the 4K
 PQ16 array ``djxl`` wrote; ``fast_lossless_encode`` decoded back
 exactly; and the system libjxl's decode of the card's stream where it
 is installed. These two phases run with PIL made unimportable, as on a
-machine without it.
+machine without it. Then the repository's tools
+(``conformance_path``, ``libjxl_tpu_torch.tools``): ``run_corpus`` of the
+committed conformance corpus (tests/torch_corpus/conformance/: 28
+streams, with goldens from the system libjxl where it decoded them)
+decoded on the card, every libjxl golden within the manifest's limits
+(the one self golden, the port's own CPU decode of a PQ stream, is
+reported, and where the card misses it the frame's XYB must be within
+1e-4 of the CPU's); ``profile_device`` on 4K stream 0, one JSON line
+per stage (the scatter, coefficients -> XYB
+with all classes and with the 8x8 family alone, gaborish and EPF 1/2/3
+through the kernel, the two tails, the device-resident chain and the
+full path's overhead over it); ``microbench`` with its device decode on
+the card; and, where the system libjxl is installed, ``rd_table`` and
+``interop_sweep`` at one image and one distance (else ``"refjxl":
+false``). Last, the decoder's error contract on the card
+(``robustness_path``): the 40 files of tests/corpus/ and the seeded
+byte-flip and truncation sweeps of ``fuzz_targets.valid_stream()``
+through ``decode``, ``decode_all`` and ``decode_device``; each decodes
+or raises ``JxlError`` (``decode_device`` may also refuse a frame its
+feed route does not carry, with the documented NotImplementedError), no
+feed is staged with an out-of-range index, and after it the CUDA
+context still synchronises and the kernel still matches its plain
+version within 2e-6. It runs last, so that a device-side assert there
+poisons no later phase.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-only [--baseline SRC]
@@ -1149,6 +1172,213 @@ def tools_path(torch, np, epf_cuda, smi, tmp):
     return launches
 
 
+CONFORMANCE_CORPUS = os.path.join(POST_CORPUS, "conformance")
+SWEEP_FLIP = 0xA5       # tests/test_fuzz.py's seeded byte flip
+SWEEP_CUT_STEP = 3      # tests/test_fuzz.py's truncation sweep
+# The feed route's documented refusal of a frame it does not carry
+# (modular frames, chroma subsampling, extra channels, ...; raised by
+# frame/decode_frame.py before any device work).
+UNSUPPORTED = "is not supported by the device decode path"
+
+
+def conformance_path(torch, np, epf_cuda, smi, tmp):
+    """The repository's tools on the card (``libjxl_tpu_torch.tools``):
+    ``run_corpus`` over the committed conformance corpus
+    (tests/torch_corpus/conformance/, goldens from the system libjxl
+    where it decoded the stream) within the manifest's limits (a missed
+    self golden is held by its XYB, as below); ``profile_device`` on 4K
+    stream 0, one JSON line per stage;
+    ``microbench`` with the device decode; and, where the system libjxl
+    is installed, ``rd_table`` and ``interop_sweep`` at one image and one
+    distance. Returns the EPF launches (counted from 0 just before the
+    phase)."""
+    import contextlib
+    import io
+
+    from libjxl_tpu_torch.extras import refjxl
+    from libjxl_tpu_torch.tools import (interop_sweep, microbench,
+                                        profile_device, rd_table)
+    from libjxl_tpu_torch.tools.conformance import run_corpus
+
+    ms, checks = {}, {}
+    epf_cuda.launches = 0
+
+    # 1. The committed conformance corpus, decoded on the card.
+    t = time.perf_counter()
+    results = run_corpus.run(CONFORMANCE_CORPUS, "cuda")
+    ms["run_corpus"] = (time.perf_counter() - t) * 1e3
+    with open(os.path.join(CONFORMANCE_CORPUS, "manifest.json")) as f:
+        manifest = json.load(f)
+    checks["run_corpus"] = {
+        name: {"ok": ok, "rmse": rmse, "peak": peak,
+               "golden": manifest[name]["golden"],
+               "limit_rmse": manifest[name]["rmse"],
+               "limit_peak": manifest[name]["peak"]}
+        for name, ok, rmse, peak in results}
+    failed = [name for name, ok, _, _ in results if not ok]
+    oracle_failed = [n for n in failed if manifest[n]["golden"] != "self"]
+    if oracle_failed or len(results) != len(manifest):
+        raise AssertionError(
+            f"conformance on the card: {oracle_failed} fail "
+            f"{[checks['run_corpus'][n] for n in oracle_failed]}")
+    corpus_launches = epf_cuda.launches
+    # A self golden is the port's own decode on the CPU, so a card decode
+    # that misses it is held to the rule for two float32 decoders (its
+    # PQ16 codes move by more than one in dark tones for XYB ~1e-7
+    # apart; ROADMAP queue 3, caveat 5): the frame's XYB on the card
+    # within XYB_TOL of the CPU's.
+    checks["self_golden_missed_on_card"] = {}
+    for name in failed:
+        data = read(name + ".jxl", CONFORMANCE_CORPUS)
+        err = float(np.abs(frame_xyb(data, "cuda")
+                           - frame_xyb(data, "cpu")).max())
+        checks["self_golden_missed_on_card"][name] = {
+            **checks["run_corpus"][name], "xyb_max_abs_diff_vs_cpu": err}
+        if not err <= XYB_TOL:
+            raise AssertionError(f"conformance on the card: {name} "
+                                 f"{checks['self_golden_missed_on_card']}")
+
+    # 2. The per-stage profile of 4K stream 0.
+    t = time.perf_counter()
+    stages = profile_device.profile(read(FILES_4K[0]), "cuda", reps=5)
+    ms["profile_device"] = (time.perf_counter() - t) * 1e3
+    for line in stages:
+        emit({"phase": "profile_device", "card": smi,
+              "stream": FILES_4K[0], **line})
+    if [s["stage"] for s in stages] != list(profile_device.STAGES):
+        raise AssertionError("profile_device: stages "
+                             f"{[s['stage'] for s in stages]}")
+
+    # 3. microbench, with the device decode on the card.
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        benches = microbench.run("cuda")
+    ms["microbench"] = (time.perf_counter() - t) * 1e3
+    checks["microbench_ms"] = {name: s * 1e3 for name, s in benches}
+    if benches[-1][0] != "device decode (cuda)" or len(benches) != 13:
+        raise AssertionError(f"microbench: {out.getvalue()}")
+
+    # 4. The system libjxl's tools, at one image and one distance.
+    if refjxl.available():
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = rd_table.main(["--out", tmp, "--images", "1",
+                                "--distances", "1.0", "--device", "cuda"])
+        ms["rd_table"] = (time.perf_counter() - t) * 1e3
+        row = [ln for ln in out.getvalue().splitlines()
+               if ln.startswith("| 1.0 |")]
+        if rc != 0 or len(row) != 1:
+            raise AssertionError(f"rd_table: {out.getvalue()}")
+        checks["rd_table_row"] = row[0]
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            fails = interop_sweep.sweep(0, 1, device="cuda")
+        ms["interop_sweep"] = (time.perf_counter() - t) * 1e3
+        checks["interop_sweep_failures"] = [list(map(str, f))
+                                            for f in fails]
+        if fails:
+            raise AssertionError(f"interop_sweep: {fails}")
+    launches = epf_cuda.launches
+    emit({"phase": "conformance_path", "card": smi,
+          "refjxl": refjxl.available(), "epf_launches": launches,
+          "epf_launches_run_corpus": corpus_launches,
+          "cases": len(results), "wall_ms": ms, "checks": checks})
+    return launches
+
+
+def robustness_path(torch, np, epf_cuda, filters, smi):
+    """The decoder's error contract on the card: the committed crash
+    corpus (tests/corpus/) and the seeded byte-flip and truncation sweeps
+    of ``fuzz_targets.valid_stream()`` through ``decode``, ``decode_all``
+    and ``decode_device`` on ``cuda``. Each call decodes or raises
+    ``JxlError`` (``decode_device`` may also refuse a frame its feed
+    route does not carry, with its documented NotImplementedError);
+    anything else fails the phase, and so does a feed staged with an
+    out-of-range index. Then the CUDA context must still work: a
+    synchronise and the EPF kernel against its plain version once more.
+    Returns the EPF launches and the kernel's error in that check."""
+    import glob
+
+    import libjxl_tpu_torch
+    from libjxl_tpu_torch.base.errors import JxlError
+    from libjxl_tpu_torch.tools import fuzz_targets
+
+    base = fuzz_targets.valid_stream("cuda")
+    crash_corpus = os.path.join(ROOT, "tests", "corpus")
+    inputs = [(os.path.basename(p), read(os.path.basename(p), crash_corpus))
+              for p in sorted(glob.glob(os.path.join(crash_corpus,
+                                                     "*.bin")))]
+    n_corpus = len(inputs)
+    for pos in range(len(base)):
+        data = bytearray(base)
+        data[pos] ^= SWEEP_FLIP
+        inputs.append((f"flip{pos}", bytes(data)))
+    inputs += [(f"cut{c}", base[:c])
+               for c in range(0, len(base), SWEEP_CUT_STEP)]
+
+    def decode_device(data):
+        libjxl_tpu_torch.decode_device(data, out="pq16", device="cuda")
+        torch.cuda.synchronize()
+
+    calls = {"decode": lambda d: libjxl_tpu_torch.decode(d, device="cuda"),
+             "decode_all": lambda d: libjxl_tpu_torch.decode_all(
+                 d, device="cuda"),
+             "decode_device": decode_device}
+    counts = {name: {"decoded": 0, "JxlError": 0, "unsupported": 0}
+              for name in calls}
+    faults: list = []
+    epf_cuda.launches = 0
+    t = time.perf_counter()
+    with fuzz_targets.checking_feeds(faults):
+        for label, data in inputs:
+            for name, fn in calls.items():
+                try:
+                    fn(data)
+                    outcome = "decoded"
+                except JxlError:
+                    outcome = "JxlError"
+                except NotImplementedError as e:
+                    if name != "decode_device" or UNSUPPORTED not in str(e):
+                        raise AssertionError(f"{name}({label}): {e!r}")
+                    outcome = "unsupported"
+                except Exception as e:
+                    raise AssertionError(f"{name}({label}): {e!r}") from e
+                counts[name][outcome] += 1
+            if faults:
+                raise AssertionError(f"{label}: out-of-range feed {faults}")
+    wall_ms = (time.perf_counter() - t) * 1e3
+    launches = epf_cuda.launches
+
+    # The context is alive: synchronise, then the kernel once more.
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(20260417)
+    dev = torch.device("cuda")
+    img = torch.from_numpy(rng.normal(0, 0.3, (3, 257, 389))
+                           .astype(np.float32)).to(dev)
+    sig = torch.from_numpy(rng.uniform(-6.0, -0.05, (33, 49))
+                           .astype(np.float32)).to(dev)
+    err = (epf_cuda.apply_loop_filters(img, sig, epf_iters=3, gab=True)
+           - filters.apply_loop_filters(img, sig, epf_iters=3, gab=True)) \
+        .abs().max().item()
+    torch.cuda.synchronize()
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"after the robustness inputs the EPF kernel "
+                             f"differs from its plain version by {err}")
+    emit({"phase": "robustness_path", "card": smi,
+          "inputs": len(inputs), "corpus_files": n_corpus,
+          "flips": len(base), "cuts": len(inputs) - n_corpus - len(base),
+          "valid_stream_bytes": len(base),
+          "valid_stream_is_cpu_bytes": base == fuzz_targets.valid_stream(
+              "cpu"),
+          "outcomes": counts, "out_of_range_feeds": len(faults),
+          "epf_launches": launches, "wall_ms": wall_ms,
+          "kernel_after_max_abs_err": err})
+    return launches, err
+
+
 class KernelCapture:
     """Keeps the inputs of every ``epf_cuda.apply_loop_filters`` call made
     while it is active (the step calls the wrapper by attribute, so the
@@ -1962,7 +2192,20 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         tools_launches = tools_path(torch, np, epf_cuda, smi, tmp)
 
-    # ---- 12. kernels (the line before the last) ----
+    # ---- 12-13. the repository's tools; the error contract (last, so
+    # that a device-side assert poisons no later phase) ----
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        _phase[0] = "conformance_path"
+        torch.cuda.empty_cache()
+        conformance_launches = conformance_path(torch, np, epf_cuda, smi,
+                                                tmp)
+    _phase[0] = "robustness_path"
+    torch.cuda.empty_cache()
+    robustness_launches, after_err = robustness_path(torch, np, epf_cuda,
+                                                     filters, smi)
+    max_err = max(max_err, after_err)
+
+    # ---- 14. kernels (the line before the last) ----
     _phase[0] = "kernels"
     emit({"phase": "done", "wall_s": time.monotonic() - t0})
     emit({"kernels": [{
@@ -1973,7 +2216,8 @@ def main(argv=None) -> int:
         "launches": (main_launches + post_launches + e2e_launches
                      + batched_launches + api_launches
                      + enc_launches + sharded_launches + cli_launches
-                     + tools_launches),
+                     + tools_launches + conformance_launches
+                     + robustness_launches),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

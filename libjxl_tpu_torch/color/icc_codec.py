@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from libjxl_tpu_torch.base.errors import BitstreamError
+from libjxl_tpu_torch.base.errors import BitstreamError, NotEnoughBytesError
 from libjxl_tpu_torch.bitstream.fields import read_u64, write_u64
 
 ICC_HEADER_SIZE = 128
@@ -366,8 +366,18 @@ def predict_icc(icc: bytes) -> bytes:
                  + commands + data)
 
 
+# Symbols between the end-of-input checks of ``read_icc``
+# (ANSSymbolReader::kMaxCheckpointInterval).
+_CHECKPOINT_INTERVAL = 512
+
+
 def read_icc(r) -> bytes:
-    """ICCReader::Init/Process (icc_codec.cc:339-423)."""
+    """ICCReader::Init/Process (icc_codec.cc:339-423). Like
+    ICCReader::Process, the symbol loop checks every
+    ``_CHECKPOINT_INTERVAL`` symbols that it has not read past the end
+    of the input (CheckEOI), so a short input that declares a large
+    encoded size fails at once instead of decoding zero bits for up to
+    2^28 symbols."""
     from libjxl_tpu_torch.entropy.codes import SymbolReader, decode_histograms
 
     enc_size = read_u64(r)
@@ -378,6 +388,9 @@ def read_icc(r) -> bytes:
     out = bytearray(enc_size)
     b1 = b2 = 0
     for i in range(enc_size):
+        if i % _CHECKPOINT_INTERVAL == 0 and r.overread:
+            raise NotEnoughBytesError("ICC: input ends inside the "
+                                      "encoded profile")
         v = dec.read(_ans_context(i, b1, b2))
         if v > 255:
             raise BitstreamError("invalid ICC byte")

@@ -5,6 +5,7 @@ it.
 
     python tests/torch_corpus/generate.py [up2|splines|patches|anim|spot|jpeg]
     python tests/torch_corpus/generate.py corpus-sizes
+    python tests/torch_corpus/generate.py conformance
 
 - ``4k_hdr_pq_d2_e5_up2_iso3200_epf3.jxl``: the content of
   ``tools/gen_bench_corpus.py:make_image(0)`` (3840x2160, 16-bit),
@@ -31,6 +32,13 @@ it.
   85 with 4:2:0 chroma subsampling: the input of the JPEG transcode
   and reconstruction checks (``python tests/torch_corpus/generate.py
   jpeg``; PIL only, no encoder of the repo).
+
+- ``conformance/``: the port's conformance corpus, written by
+  ``libjxl_tpu_torch.tools.conformance.generate_corpus`` on the CPU
+  (``python tests/torch_corpus/generate.py conformance``): 28 cases, one
+  stream, one golden (``.npz``, the decoded integer dtype) and one
+  manifest entry each, with goldens from the system libjxl
+  (``refjxl``) where it decodes the stream. It uses the port only.
 
 The generation is deterministic (fixed seeds and encoder settings).
 
@@ -263,13 +271,26 @@ def corpus_sizes() -> None:
               f"identical {data == ref}", flush=True)
 
 
+def write_conformance() -> None:
+    import shutil
+
+    from libjxl_tpu_torch.tools.conformance.generate_corpus import generate
+    out = os.path.join(HERE, "conformance")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.time()
+    cases = generate(out, device="cpu")
+    print(f"conformance/: {len(cases)} cases in {time.time() - t0:.1f} s",
+          flush=True)
+
+
 def main() -> None:
     which = sys.argv[1:] or ["up2", "splines", "patches", "anim", "spot"]
     for name in which:
         {"up2": encode_up2, "splines": encode_splines,
          "patches": encode_patches, "anim": encode_anim,
          "spot": encode_spot, "jpeg": write_jpeg,
-         "corpus-sizes": corpus_sizes}[name]()
+         "corpus-sizes": corpus_sizes,
+         "conformance": write_conformance}[name]()
 
 
 if __name__ == "__main__":
